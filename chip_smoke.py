@@ -5,15 +5,21 @@
 Phases, each of which raises on failure (non-zero exit):
   1. card and build: the card's name and power limit; every CUDA kernel of
      the port is compiled from the sources in this checkout (nvcc, sm_90a);
-  2. each kernel against its plain PyTorch version on the card, at the shapes
-     the main path launches it with plus a ragged one, both activations, fp32
-     and bf16, and its gradient at a small shape;
+  2. each kernel against its plain PyTorch version on the card: the edge
+     gate's paired launch (both attention directions) at the shapes the main
+     path launches it with, a ragged pair, H = 100 and pre-activations up to
+     +-100 (with w2 unscaled, held to float64 no worse than the plain fp32
+     version); its one-direction launch at the four one-direction shapes of the
+     gate and a ragged one; both activations, fp32 and bf16, and both
+     gradients at a small shape;
   3. the main path: `DockingEngine.dock_raw` at preset `fabind` full width on
      16 seeded synthetic requests (seeded random weights); one finite pose per
-     request, every kernel launched, and the first batch docked again with
-     the kernels replaced by their plain versions;
-  4. times (CUDA events after warm-up): each kernel and its plain version,
-     and dock_raw's batch latency and complexes/s.
+     request, every kernel launched (the gate 33 times per batch), and the
+     first batch docked again with the kernels replaced by their plain
+     versions;
+  4. times (CUDA events after warm-up): each kernel and its plain version
+     beside its fp32 bound and its special-function-unit floor, the gate's
+     device time per batch, and dock_raw's batch latency and complexes/s.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one docking batch (device time by kernel) is written to PATH.
@@ -26,6 +32,7 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -33,31 +40,50 @@ import torch
 from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.models import layers
 from fabind_tpu_torch.ops import edge_gate
-from fabind_tpu_torch.ops.cuda_build import build_all
+from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
 from fabind_tpu_torch.serve import DockingEngine
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FP32_S = 67e12
+# special-function-unit (MUFU) results per clock per SM, compute capability
+# 9.0 (CUDA C Programming Guide, arithmetic instruction throughput), and
+# MUFU operations per silu gate element (one exp, one reciprocal)
+MUFU_PER_CLK_SM = 16
+MUFU_PER_SILU = 2
 
 SMOKE_SHAPES = dict(max_ligand=48, max_pocket=160, max_protein=512)
 BATCH = 8
 N_REQUESTS = 16
-# (name, B, D, N, H, launches per batch): the edge gate's main-path launches
-# at SMOKE_SHAPES (1 pocket layer x 1 recycle, 4 docking layers x 8 recycles;
-# two attention directions each)
-GATE_SHAPES = [
+# (name, B, Na, Nb, H, launches per batch): the edge gate's main-path
+# launches at SMOKE_SHAPES, both directions of a layer in one launch
+# (1 pocket layer x 1 recycle, 4 docking layers x 8 recycles)
+PAIR_SHAPES = [
+    ("pocket lig-prot", BATCH, 48, 512, 128, 1),
+    ("dock lig-pkt", BATCH, 48, 160, 512, 32),
+]
+PAIR_EXTRA = [("ragged", 2, 7, 11, 48, 0), ("H=100", 2, 13, 21, 100, 0)]
+GATE_LAUNCHES_PER_BATCH = sum(s[-1] for s in PAIR_SHAPES)
+# (name, B, D, N, H, launches per batch of the first port, one per
+# direction): the one-direction launch, phi_rank1
+SINGLE_SHAPES = [
     ("pocket lig<-prot", BATCH, 48, 512, 128, 1),
     ("pocket prot<-lig", BATCH, 512, 48, 128, 1),
     ("dock lig<-pkt", BATCH, 48, 160, 512, 32),
     ("dock pkt<-lig", BATCH, 160, 48, 512, 32),
 ]
 RAGGED = ("ragged", 2, 7, 11, 48, 0)
-GATE_LAUNCHES_PER_BATCH = sum(s[-1] for s in GATE_SHAPES)
+# the large-argument case: l1 uniform in [-100, 100]
+WIDE = 100.0
 # kernel vs plain: the sum over H runs in another order (fp32); bf16 output
 # is one rounding of the same fp32 sum, so within ~1 bf16 ulp
 TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
+# pre-activations up to +-WIDE with w2 unscaled: terms reach ~100, where two
+# fp32 sums over H in different orders differ by more than TOL; the kernel's
+# error against float64 may be at most this multiple of the plain fp32
+# version's
+WIDE_ERR_RATIO = 1.5
 # dock_raw with the kernel vs with the plain gate: max coordinate difference
 # in Angstrom after 8 recycles x 4 layers
 POSE_TOL_A = 1e-2
@@ -70,18 +96,35 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def card() -> str:
+def card():
+    """The card's name and power limit as `nvidia-smi --query-gpu=name,
+    power.limit --format=csv,noheader` prints them, and its maximum SM
+    clock in Hz, from one nvidia-smi call."""
     out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
+    name, power, clock = (f.strip() for f in
+                          out.stdout.strip().splitlines()[0].split(","))
+    return f"{name}, {power}", float(clock.split()[0]) * 1e6
 
 
 def gate_inputs(B, D, N, H, dtype, seed=0):
     g = torch.Generator().manual_seed(seed)
     return tuple(torch.randn(*s, generator=g).to("cuda", dtype)
                  for s in ((B, N, H), (B, D, N), (H,), (H,)))
+
+
+def pair_inputs(B, Na, Nb, H, dtype, seed=0, wide=False, w_scale=1.0):
+    """(l1_a, l1_b, r, u, w2 * w_scale); with `wide`, l1 uniform in
+    [-WIDE, WIDE], so the pre-activations reach +-100."""
+    g = torch.Generator().manual_seed(seed)
+    l1 = [torch.randn(B, n, H, generator=g) for n in (Na, Nb)]
+    if wide:
+        l1 = [(torch.rand(t.shape, generator=g) * 2 - 1) * WIDE for t in l1]
+    r, u, w2 = (torch.randn(*s, generator=g) for s in ((B, Na, Nb), (H,),
+                                                       (H,)))
+    return tuple(t.to("cuda", dtype) for t in l1 + [r, u, w2 * w_scale])
 
 
 def cuda_time_ms(fn, iters=20, warmup=3) -> float:
@@ -102,41 +145,103 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gate_bound_ms(B, D, N, H) -> float:
+def gate_bound_ms(B, Na, Nb, H, pair=False) -> float:
     """Least time for one fp32 silu launch: bytes moved (inputs read once,
-    output written once) over HBM bandwidth vs the fp32 operations (per
+    outputs written once) over HBM bandwidth vs the fp32 operations (per
     gate element: mul+add pre-activation, exp, add, divide, multiply for
-    silu, mul+add accumulation = 8) over the fp32 peak."""
-    nbytes = 4 * (B * N * H + 2 * B * D * N + 2 * H)
-    ops = 8 * B * D * N * H
+    silu, mul+add accumulation = 8) over the fp32 peak. One direction:
+    l1 [B,Nb,H], r [B,Na,Nb] -> [B,Na,Nb]; the pair adds l1_a [B,Na,H] and
+    the second output, and doubles the gate elements."""
+    dirs = 2 if pair else 1
+    nbytes = 4 * (B * Nb * H + (pair and B * Na * H)
+                  + (1 + dirs) * B * Na * Nb + 2 * H)
+    ops = 8 * dirs * B * Na * Nb * H
     return max(nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S) * 1e3
+
+
+def sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=False) -> float:
+    """Least time for one silu launch on the special-function units: two
+    MUFU operations per gate element at MUFU_PER_CLK_SM per SM per clock,
+    every SM at its maximum clock."""
+    elems = (2 if pair else 1) * B * Na * Nb * H
+    return elems * MUFU_PER_SILU / (MUFU_PER_CLK_SM * sms * clock_hz) * 1e3
+
+
+def compare(got, want, dtype, what) -> float:
+    """Hold a kernel output to its plain version; returns the max abs
+    error."""
+    check(got.dtype == dtype and got.shape == want.shape,
+          f"{what} output dtype/shape")
+    check(bool(torch.isfinite(got).all()), f"{what} finite")
+    err = (got.float() - want.float()).abs()
+    rel = (err / want.float().abs().clamp(min=1e-6)).max().item()
+    atol, rtol = TOL[dtype]
+    print(f"{what}: max_abs_err {err.max().item():.3e} max_rel_err "
+          f"{rel:.3e} (atol {atol}, rtol {rtol})")
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    return err.max().item()
 
 
 def check_kernels() -> float:
     """Phase 2: the edge-gate kernel against its plain version on the card.
-    Returns the largest fp32 absolute error over the main-path shapes."""
+    Returns the largest fp32 absolute error of the paired launch over the
+    main-path shapes."""
+    dtypes = (torch.float32, torch.bfloat16)
+    cases = [(shape, dtype, act, False) for shape in PAIR_SHAPES + PAIR_EXTRA
+             for dtype in dtypes for act in ("silu", "relu")]
+    cases += [(shape, dtype, "silu", True) for shape in (PAIR_SHAPES[1],
+                                                        PAIR_EXTRA[0])
+              for dtype in dtypes]
     max_err_fp32 = 0.0
-    for name, B, D, N, H, _ in GATE_SHAPES + [RAGGED]:
-        for dtype in (torch.float32, torch.bfloat16):
+    for (name, B, Na, Nb, H, per_batch), dtype, act, wide in cases:
+        # the wide case scales w2 by 1 / WIDE, so each term w2[h] * act(x)
+        # and the outputs keep the main path's magnitude, which the fp32
+        # tolerance is stated for
+        args = pair_inputs(B, Na, Nb, H, dtype, wide=wide,
+                           w_scale=1 / WIDE if wide else 1.0)
+        got = edge_gate.phi_rank1_pair(*args, act=act)
+        torch.cuda.synchronize()
+        want = edge_gate.phi_rank1_pair_reference(*args, act=act)
+        for d, g, w in zip(("ab", "ba"), got, want):
+            err = compare(g, w, dtype,
+                          f"edge_gate pair {name} [{B},{Na},{Nb},{H}] {d} "
+                          f"{act} {str(dtype)[6:]}"
+                          f"{' pre-activation +-100' if wide else ''}")
+            if dtype == torch.float32 and per_batch and not wide:
+                max_err_fp32 = max(max_err_fp32, err)
+    # the same wide case with w2 unscaled: the kernel and the plain version
+    # against a float64 evaluation
+    l1_a, l1_b, r, u, w2 = pair_inputs(*PAIR_SHAPES[1][1:5], torch.float32,
+                                       wide=True)
+    got = edge_gate.phi_rank1_pair(l1_a, l1_b, r, u, w2)
+    plain = edge_gate.phi_rank1_pair_reference(l1_a, l1_b, r, u, w2)
+    l1_a, l1_b, r, u, w2 = (t.double() for t in (l1_a, l1_b, r, u, w2))
+    exact = [torch.einsum("bdnh,h->bdn", torch.nn.functional.silu(
+        l1[:, None] + rr[..., None] * u), w2)
+        for l1, rr in ((l1_b, r), (l1_a, r.transpose(1, 2)))]
+    check(all(bool(torch.isfinite(x).all()) for x in got),
+          "edge_gate pair +-100 w2 unscaled: finite")
+    errs = [max((a.double() - e).abs().max().item() for a, e in zip(x, exact))
+            for x in (got, plain)]
+    print(f"edge_gate pair {PAIR_SHAPES[1][0]} silu fp32 pre-activation "
+          f"+-100, w2 unscaled, against float64: kernel max_abs_err "
+          f"{errs[0]:.3e}, plain fp32 max_abs_err {errs[1]:.3e} (limit "
+          f"{WIDE_ERR_RATIO} x plain)")
+    check(errs[0] <= WIDE_ERR_RATIO * errs[1],
+          f"edge_gate pair +-100 w2 unscaled: kernel error {errs[0]:.3e} vs "
+          f"float64 above {WIDE_ERR_RATIO} x plain fp32's {errs[1]:.3e}")
+    for name, B, D, N, H, _ in SINGLE_SHAPES + [RAGGED]:
+        for dtype in dtypes:
             for act in ("silu", "relu"):
                 args = gate_inputs(B, D, N, H, dtype)
                 got = edge_gate.phi_rank1(*args, act=act)
                 torch.cuda.synchronize()
-                want = edge_gate.phi_rank1_reference(*args, act=act)
-                check(got.dtype == dtype and got.shape == want.shape,
-                      f"edge_gate {name} output dtype/shape")
-                err = (got.float() - want.float()).abs()
-                rel = (err / want.float().abs().clamp(min=1e-6)).max().item()
-                atol, rtol = TOL[dtype]
-                print(f"edge_gate {name} [{B},{D},{N},{H}] {act} "
-                      f"{str(dtype)[6:]}: max_abs_err {err.max().item():.3e} "
-                      f"max_rel_err {rel:.3e} (atol {atol}, rtol {rtol})")
-                torch.testing.assert_close(got.float(), want.float(),
-                                           atol=atol, rtol=rtol)
-                if dtype == torch.float32 and name != "ragged":
-                    max_err_fp32 = max(max_err_fp32, err.max().item())
-    # gradient: the autograd.Function's backward vs autograd through the
-    # plain version
+                compare(got, edge_gate.phi_rank1_reference(*args, act=act),
+                        dtype, f"edge_gate {name} [{B},{D},{N},{H}] {act} "
+                        f"{str(dtype)[6:]}")
+    # gradients: the autograd.Functions' backward vs autograd through the
+    # plain versions
     args = [t.requires_grad_() for t in gate_inputs(2, 7, 11, 48,
                                                     torch.float32, seed=1)]
     g = torch.randn(2, 7, 11, device="cuda")
@@ -144,7 +249,21 @@ def check_kernels() -> float:
     want = torch.autograd.grad(edge_gate.phi_rank1_reference(*args), args, g)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
-    print("edge_gate backward matches autograd through the plain version")
+    args = [t.requires_grad_() for t in pair_inputs(2, 7, 11, 48,
+                                                    torch.float32, seed=1)]
+    gs = (torch.randn(2, 7, 11, device="cuda"),
+          torch.randn(2, 11, 7, device="cuda"))
+
+    def pair_grad(fn):
+        ab, ba = fn(*args)
+        return torch.autograd.grad((ab * gs[0]).sum() + (ba * gs[1]).sum(),
+                                   args)
+
+    for a, b in zip(pair_grad(edge_gate.phi_rank1_pair),
+                    pair_grad(edge_gate.phi_rank1_pair_reference)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    print("edge_gate backward (one direction and pair) matches autograd "
+          "through the plain version")
     return max_err_fp32
 
 
@@ -192,17 +311,20 @@ def main(argv=None) -> int:
         return 1
 
     # ---- 1. card and build
-    card_line = card()
+    card_line, clock_hz = card()
     print(card_line)
     kind = torch.cuda.get_device_name(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
-          f"python {sys.version.split()[0]}")
+          f"python {sys.version.split()[0]}; {sms} SMs, max SM clock "
+          f"{clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
     build_all([edge_gate.KERNEL])
     print(f"kernel build: {time.perf_counter() - t0:.2f} s")
     for line in edge_gate.KERNEL.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(k in line for k in ("entry function", "registers", "spill")):
             print("ptxas:", line.strip())
+    print_sass_mufu(edge_gate.KERNEL.lib_path)
 
     # ---- 2. kernels against their plain versions
     max_err = check_kernels()
@@ -233,12 +355,12 @@ def main(argv=None) -> int:
     (chunk, batch, n_real), = list(engine.batches(raws[:BATCH], results))
     kernel_coords = engine.run_batch(batch)[0]
     # the same batch with the gate's plain version in place of the kernel
-    orig = layers.phi_rank1
-    layers.phi_rank1 = edge_gate.phi_rank1_reference
+    orig = layers.phi_rank1_pair
+    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
     try:
         plain_coords = engine.run_batch(batch)[0]
     finally:
-        layers.phi_rank1 = orig
+        layers.phi_rank1_pair = orig
     diff = (kernel_coords - plain_coords).abs().max().item()
     print(f"dock batch, kernel vs plain gate: max coordinate difference "
           f"{diff:.3e} A (tolerance {POSE_TOL_A} A)")
@@ -246,20 +368,32 @@ def main(argv=None) -> int:
 
     # ---- 4. times
     rows = []
-    for name, B, D, N, H, per_batch in GATE_SHAPES:
-        a = gate_inputs(B, D, N, H, torch.float32)
-        k_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
-        p_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_reference(*a))
-        b_ms = gate_bound_ms(B, D, N, H)
-        rows.append((per_batch, k_ms, p_ms, b_ms))
-        print(f"time edge_gate {name} [{B},{D},{N},{H}] fp32 silu: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"[{card_line}]")
+    for name, B, Na, Nb, H, per_batch in PAIR_SHAPES:
+        a = pair_inputs(B, Na, Nb, H, torch.float32)
+        k_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair(*a))
+        p_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair_reference(*a))
+        b_ms = gate_bound_ms(B, Na, Nb, H, pair=True)
+        f_ms = sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=True)
+        rows.append((per_batch, k_ms, p_ms, b_ms, f_ms))
+        print(f"time edge_gate pair {name} [{B},{Na},{Nb},{H}] fp32 silu: "
+              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fp32 bound "
+              f"{b_ms:.4f} ms, MUFU floor {f_ms:.4f} ms [{card_line}]")
     n = sum(r[0] for r in rows)
-    k_ms, p_ms, b_ms = (sum(r[0] * r[i] for r in rows) / n for i in (1, 2, 3))
+    k_ms, p_ms, b_ms, f_ms = (sum(r[0] * r[i] for r in rows) / n
+                              for i in (1, 2, 3, 4))
     print(f"time edge_gate per main-path launch (mean over {n} launches of a "
-          f"batch): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-          f"{b_ms:.4f} ms [{card_line}]")
+          f"batch): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fp32 bound "
+          f"{b_ms:.4f} ms, MUFU floor {f_ms:.4f} ms [{card_line}]")
+    print(f"time edge_gate device time per batch ({n} launches): kernel "
+          f"{k_ms * n:.4f} ms, MUFU floor {f_ms * n:.4f} ms [{card_line}]")
+    for name, B, D, N, H, _ in SINGLE_SHAPES:
+        a = gate_inputs(B, D, N, H, torch.float32)
+        t_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
+        print(f"time edge_gate one direction {name} [{B},{D},{N},{H}] fp32 "
+              f"silu: kernel {t_ms:.4f} ms, fp32 bound "
+              f"{gate_bound_ms(B, D, N, H):.4f} ms, MUFU floor "
+              f"{sfu_floor_ms(B, D, N, H, sms, clock_hz):.4f} ms "
+              f"[{card_line}]")
 
     def sync_batch():
         engine.run_batch(batch)
@@ -302,13 +436,35 @@ def main(argv=None) -> int:
     return 0
 
 
+def print_sass_mufu(lib_path) -> None:
+    """Special-function-unit instructions in each compiled variant of the
+    kernel, counted in its SASS (cuobjdump -sass): the loop body of the
+    silu pair variant evaluates 32 gate elements (4 h x 4 cells x 2
+    directions), so 2 MUFU per element shows as 32 MUFU.EX2 and 32
+    MUFU.RCP per copy of that body."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib_path)],
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    fn = None
+    counts = {}
+    for line in out.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = {}
+        elif fn and "MUFU." in line:
+            op = line.split("MUFU.")[1].split()[0].rstrip(";")
+            counts[fn][op] = counts[fn].get(op, 0) + 1
+    check(bool(counts), "cuobjdump found no kernel in the library")
+    for fn, c in counts.items():
+        print(f"sass {fn}: MUFU {dict(sorted(c.items())) or 'none'}")
+
+
 def profile_batch(sync_batch, path: str, batch_ms: float,
                   card_line: str) -> None:
     """Device time by kernel over one docking batch, written to `path`, and
     a summary line: device busy time against the (unprofiled) median batch
     time, and the matrix products' share, FLOPs and rate."""
-    from pathlib import Path
-
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -248,12 +248,18 @@ class InterAttention(nn.Module):
         # coord_mlp.linear1 over v_edge = v_node + r * v_r: a per-node
         # projection plus a rank-1 radial correction (exact without a
         # LayerNorm on the input)
+        lig, pkt = layout.lig_slice, layout.pkt_slice
         decompose = not (cfg.is_plus and cfg.use_ln_mlp)
+        phi_l = phi_p = None
         if decompose:
+            # both directions' gates from one r [B, Nc, Np], in one launch
             u_r = F.linear(v_r, self.coord_mlp.lin1.weight)
+            phi_l, phi_p = self.coord_mlp.finish_scalar_rank1_pair(
+                self.coord_mlp.lin1(v_node[:, lig]),
+                self.coord_mlp.lin1(v_node[:, pkt]), r, u_r)
 
         def direction(q_d, k_node_s, v_node_s, r_ds, adj_ds, bias_ds,
-                      x_d, x_s):
+                      x_d, x_s, phi):
             """Destinations d attend over sources s. The coord update
             sum_s t (x_d - x_s) is (sum_s t) x_d - t @ x_s."""
             logits = torch.einsum("bdc,bsc->bds", q_d, k_node_s)
@@ -261,10 +267,7 @@ class InterAttention(nn.Module):
             A = _masked_softmax(logits, adj_ds, dim=-1)
             agg = torch.einsum("bds,bsc->bdc", A, v_node_s)
             agg = agg + (A * r_ds).sum(-1)[..., None] * v_r
-            if decompose:
-                phi = self.coord_mlp.finish_scalar_rank1(
-                    self.coord_mlp.lin1(v_node_s), r_ds, u_r)
-            else:
+            if phi is None:
                 phi = self.coord_mlp.scalar_call(
                     v_node_s[:, None, :, :] + r_ds[..., None] * v_r)
             t = A * phi
@@ -272,13 +275,12 @@ class InterAttention(nn.Module):
                                                            t, x_s)
             return agg, dx
 
-        lig, pkt = layout.lig_slice, layout.pkt_slice
         agg_l, dx_l = direction(q[:, lig], k_node[:, pkt], v_node[:, pkt],
                                 r, adj, pair_bias_pc.transpose(1, 2),
-                                x_l, x_p)
+                                x_l, x_p, phi_l)
         agg_p, dx_p = direction(q[:, pkt], k_node[:, lig], v_node[:, lig],
                                 r.transpose(1, 2), adj.transpose(1, 2),
-                                pair_bias_pc, x_p, x_l)
+                                pair_bias_pc, x_p, x_l, phi_p)
 
         z_h = torch.zeros_like(h[:, 0])
         agg = layout.assemble(z_h, agg_l, z_h, agg_p)

@@ -7,13 +7,13 @@ children at indices 0 and 2, the FABind+ MLPs name them linear1/linear2.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fabind_tpu_torch.ops.edge_gate import phi_rank1
+from fabind_tpu_torch.ops.edge_gate import phi_rank1_pair
 
 Tensor = torch.Tensor
 
@@ -41,8 +41,9 @@ class MLPBlock(nn.Module):
     Besides forward, exposes the decomposed pieces the EGNN layers use:
     `lin1` (first linear), `finish` (act -> dropout -> second linear ->
     ...), `finish_scalar`/`scalar_call` for out_dim == 1, and
-    `finish_scalar_rank1`, which evaluates the gate over a rank-1-structured
-    pre-activation through the edge-gate kernel.
+    `finish_scalar_rank1_pair`, which evaluates the InterAttention gate of
+    both attention directions over rank-1-structured pre-activations through
+    the edge-gate kernel.
     """
 
     def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
@@ -102,22 +103,30 @@ class MLPBlock(nn.Module):
             x = self.layernorm(x)
         return self.finish_scalar(self.lin1(x))
 
-    def finish_scalar_rank1(self, l1_v: Tensor, r: Tensor,
-                            u: Tensor) -> Tensor:
-        """finish_scalar over `pre[b,d,n,:] = l1_v[b,n,:] + r[b,d,n] * u`
-        without materializing pre: the InterAttention coordinate gate, run
-        by the edge-gate kernel (ops/edge_gate.py) when dropout is inactive
-        and act is silu or relu."""
+    def finish_scalar_rank1_pair(self, l1_a: Tensor, l1_b: Tensor, r: Tensor,
+                                 u: Tensor) -> Tuple[Tensor, Tensor]:
+        """finish_scalar over the rank-1-structured pre-activations of both
+        InterAttention directions over one r [B, Na, Nb], without
+        materializing them:
+
+            ab[b,i,j] over l1_b[b,j,:] + r[b,i,j] * u   -> [B, Na, Nb]
+            ba[b,j,i] over l1_a[b,i,:] + r[b,i,j] * u   -> [B, Nb, Na]
+
+        One launch of the edge-gate kernel (ops/edge_gate.py) when dropout
+        is inactive and act is silu or relu; else both are materialized."""
         assert self.out_dim == 1 and not self.last_act and not self.use_ln
         drop_active = (self.training and self.dropout_rate > 0
                        and self.dropout_pos in ("inner", "both"))
         if drop_active or self.act not in ("silu", "relu"):
-            return self.finish_scalar(l1_v[:, None, :, :] + r[..., None] * u)
-        out = phi_rank1(l1_v, r.contiguous(), u, self.lin2.weight[0],
-                        self.act)
+            return (self.finish_scalar(l1_b[:, None] + r[..., None] * u),
+                    self.finish_scalar(l1_a[:, None]
+                                       + r.transpose(1, 2)[..., None] * u))
+        ab, ba = phi_rank1_pair(l1_a, l1_b, r.contiguous(), u,
+                                self.lin2.weight[0], self.act)
         if self.bias_out:
-            out = out + self.lin2.bias[0]
-        return out
+            ab = ab + self.lin2.bias[0]
+            ba = ba + self.lin2.bias[0]
+        return ab, ba
 
 
 class Transition(nn.Module):
