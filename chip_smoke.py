@@ -6,42 +6,57 @@ Phases, each of which raises on failure (non-zero exit):
   1. card and build: the card's name and power limit; every CUDA kernel of
      the port is compiled from the sources in this checkout (nvcc, sm_90a);
   2. each kernel against its plain PyTorch version on the card: the edge
-     gate's paired launch (both attention directions) at the shapes the main
-     path launches it with, a ragged pair, H = 100 and pre-activations up to
-     +-100 (with w2 unscaled, held to float64 no worse than the plain fp32
-     version); its one-direction launch at the four one-direction shapes of the
-     gate and a ragged one; both activations, fp32 and bf16, and both
+     gate's paired launch (both attention directions) at every shape the two
+     served buckets launch it with, in fp32 and bf16, a ragged pair, H = 100
+     and pre-activations up to +-100 (with w2 unscaled, held to float64 no
+     worse than the plain fp32 version); its one-direction launch at the
+     four one-direction shapes and a ragged one; both activations and both
      gradients at a small shape;
-  3. the main path: `DockingEngine.dock_raw` at preset `fabind` full width on
-     16 seeded synthetic requests (seeded random weights); one finite pose per
-     request, every kernel launched (the gate 33 times per batch), and the
-     first batch docked again with the kernels replaced by their plain
-     versions;
+  3. the main path as it is deployed: `DockingEngine.dock_raw` at preset
+     `fabind` full width, bf16, over two shape buckets, on 32 seeded
+     synthetic requests (seeded random weights): one finite pose per request,
+     at least 8 requests in each bucket, the gate launched 33 times per batch
+     in each bucket; each bucket's first batch docked again with the plain
+     gate; the same requests through an fp32 engine (bf16 vs fp32 per-atom
+     difference; fp32 kernel vs plain gate); dock_screen against dock_raw,
+     a second dock_raw with the protein cache warm, post-optimization, and an
+     HTTP round trip through the serving daemon;
   4. times (CUDA events after warm-up): each kernel and its plain version
-     beside its fp32 bound and its special-function-unit floor, the gate's
-     device time per batch, and dock_raw's batch latency and complexes/s.
+     beside its bound and its special-function-unit floor, the gate's device
+     time per batch, and for the bf16 and the fp32 engine: warmup seconds,
+     batch latency per bucket, dock_raw complexes/s and peak device memory.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
-one docking batch (device time by kernel) is written to PATH.
+one bf16 docking batch of each bucket (device time by kernel) is written
+beside PATH, the bucket in its name.
 """
 from __future__ import annotations
 
 import argparse
+import io
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from fabind_tpu_torch.config import preset
+from fabind_tpu_torch.data.batching import build_sample
+from fabind_tpu_torch.data.buckets import resolve_buckets, route_sample
 from fabind_tpu_torch.models import layers
 from fabind_tpu_torch.ops import edge_gate
 from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
+from fabind_tpu_torch.ops.geometry import pairwise_dist
+from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
+from fabind_tpu_torch.postopt import configuration_loss
 from fabind_tpu_torch.serve import DockingEngine
+from fabind_tpu_torch.serve_http import make_server
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -54,17 +69,18 @@ MUFU_PER_CLK_SM = 16
 MUFU_PER_SILU = 2
 
 SMOKE_SHAPES = dict(max_ligand=48, max_pocket=160, max_protein=512)
+# the deployed configuration: two shape buckets (lig:pocket:protein), the
+# larger equal to SMOKE_SHAPES; with REQUEST_SEED, 8 of the 32 requests go
+# to the smaller one
+BUCKETS = "32:128:384,48:160:512"
 BATCH = 8
-N_REQUESTS = 16
-# (name, B, Na, Nb, H, launches per batch): the edge gate's main-path
-# launches at SMOKE_SHAPES, both directions of a layer in one launch
-# (1 pocket layer x 1 recycle, 4 docking layers x 8 recycles)
-PAIR_SHAPES = [
-    ("pocket lig-prot", BATCH, 48, 512, 128, 1),
-    ("dock lig-pkt", BATCH, 48, 160, 512, 32),
-]
+N_REQUESTS = 32
+REQUEST_SEED = 22
+MIN_PER_BUCKET = 8
+N_SCREEN = 16
+POSTOPT_STEPS = 20
+DTYPES = (torch.bfloat16, torch.float32)
 PAIR_EXTRA = [("ragged", 2, 7, 11, 48, 0), ("H=100", 2, 13, 21, 100, 0)]
-GATE_LAUNCHES_PER_BATCH = sum(s[-1] for s in PAIR_SHAPES)
 # (name, B, D, N, H, launches per batch of the first port, one per
 # direction): the one-direction launch, phi_rank1
 SINGLE_SHAPES = [
@@ -84,9 +100,15 @@ TOL = {torch.float32: (1e-4, 1e-5), torch.bfloat16: (1e-2, 1e-2)}
 # error against float64 may be at most this multiple of the plain fp32
 # version's
 WIDE_ERR_RATIO = 1.5
-# dock_raw with the kernel vs with the plain gate: max coordinate difference
-# in Angstrom after 8 recycles x 4 layers
+# fp32 dock_raw with the kernel vs with the plain gate: max coordinate
+# difference in Angstrom after 8 recycles x 4 layers
 POSE_TOL_A = 1e-2
+# bf16: the kernel and the plain gate round the same fp32 sum to bf16 and may
+# land one step apart, which 32 layers carry on; mean per-atom distance
+BF16_POSE_MEAN_TOL_A = 0.05
+# bf16 vs fp32 engine, mean per-atom distance: the JAX package's own bound
+# for its bf16 deployment (tests/test_golden_flagship.py)
+BF16_VS_FP32_MEAN_TOL_A = 0.75
 # aten ops that run the model's matrix products (profile summary)
 MATMUL_OPS = ("aten::addmm", "aten::mm", "aten::bmm", "aten::baddbmm")
 
@@ -107,6 +129,22 @@ def card():
     name, power, clock = (f.strip() for f in
                           out.stdout.strip().splitlines()[0].split(","))
     return f"{name}, {power}", float(clock.split()[0]) * 1e6
+
+
+def bucket_label(shapes) -> str:
+    return f"{shapes.max_ligand}:{shapes.max_pocket}:{shapes.max_protein}"
+
+
+def served_pair_shapes(cfg_b):
+    """(name, B, Na, Nb, H, launches per batch) of the gate's paired
+    launches in one batch of bucket cfg_b: the pocket stage over the whole
+    protein, and every docking layer of every recycle over the pocket."""
+    m, s = cfg_b.model, cfg_b.shapes
+    return [("pocket lig-prot", BATCH, s.max_ligand, s.max_protein,
+             m.pocket_pred_hidden_size,
+             m.pocket_pred_layers * m.pocket_pred_n_iter),
+            ("dock lig-pkt", BATCH, s.max_ligand, s.max_pocket,
+             m.hidden_size, m.mean_layers * m.n_iter)]
 
 
 def gate_inputs(B, D, N, H, dtype, seed=0):
@@ -145,16 +183,17 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gate_bound_ms(B, Na, Nb, H, pair=False) -> float:
-    """Least time for one fp32 silu launch: bytes moved (inputs read once,
-    outputs written once) over HBM bandwidth vs the fp32 operations (per
-    gate element: mul+add pre-activation, exp, add, divide, multiply for
-    silu, mul+add accumulation = 8) over the fp32 peak. One direction:
-    l1 [B,Nb,H], r [B,Na,Nb] -> [B,Na,Nb]; the pair adds l1_a [B,Na,H] and
-    the second output, and doubles the gate elements."""
+def gate_bound_ms(B, Na, Nb, H, pair=False, elem_bytes=4) -> float:
+    """Least time for one silu launch: bytes moved (inputs read once,
+    outputs written once, `elem_bytes` per element) over HBM bandwidth vs
+    the fp32 operations (per gate element: mul+add pre-activation, exp,
+    add, divide, multiply for silu, mul+add accumulation = 8; the kernel
+    computes in fp32 for bf16 inputs too) over the fp32 peak. One
+    direction: l1 [B,Nb,H], r [B,Na,Nb] -> [B,Na,Nb]; the pair adds l1_a
+    [B,Na,H] and the second output, and doubles the gate elements."""
     dirs = 2 if pair else 1
-    nbytes = 4 * (B * Nb * H + (pair and B * Na * H)
-                  + (1 + dirs) * B * Na * Nb + 2 * H)
+    nbytes = elem_bytes * (B * Nb * H + (pair and B * Na * H)
+                           + (1 + dirs) * B * Na * Nb + 2 * H)
     ops = 8 * dirs * B * Na * Nb * H
     return max(nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S) * 1e3
 
@@ -183,18 +222,21 @@ def compare(got, want, dtype, what) -> float:
     return err.max().item()
 
 
-def check_kernels() -> float:
+def check_kernels(served) -> dict:
     """Phase 2: the edge-gate kernel against its plain version on the card.
-    Returns the largest fp32 absolute error of the paired launch over the
-    main-path shapes."""
-    dtypes = (torch.float32, torch.bfloat16)
-    cases = [(shape, dtype, act, False) for shape in PAIR_SHAPES + PAIR_EXTRA
-             for dtype in dtypes for act in ("silu", "relu")]
-    cases += [(shape, dtype, "silu", True) for shape in (PAIR_SHAPES[1],
-                                                        PAIR_EXTRA[0])
-              for dtype in dtypes]
-    max_err_fp32 = 0.0
-    for (name, B, Na, Nb, H, per_batch), dtype, act, wide in cases:
+    `served` maps a bucket label to its served pair shapes. Returns the
+    largest absolute error of the paired silu launch at each bucket's
+    shapes, by (dtype, bucket label)."""
+    max_err = {}
+    cases = [(label, shape, dtype, act, False)
+             for label, shapes in served.items() for shape in shapes
+             for dtype in DTYPES for act in ("silu", "relu")]
+    cases += [(None, shape, dtype, act, False) for shape in PAIR_EXTRA
+              for dtype in DTYPES for act in ("silu", "relu")]
+    dock = list(served.values())[-1][1]   # the largest docking shape
+    cases += [(None, shape, dtype, "silu", True)
+              for shape in (dock, PAIR_EXTRA[0]) for dtype in DTYPES]
+    for label, (name, B, Na, Nb, H, _), dtype, act, wide in cases:
         # the wide case scales w2 by 1 / WIDE, so each term w2[h] * act(x)
         # and the outputs keep the main path's magnitude, which the fp32
         # tolerance is stated for
@@ -208,12 +250,12 @@ def check_kernels() -> float:
                           f"edge_gate pair {name} [{B},{Na},{Nb},{H}] {d} "
                           f"{act} {str(dtype)[6:]}"
                           f"{' pre-activation +-100' if wide else ''}")
-            if dtype == torch.float32 and per_batch and not wide:
-                max_err_fp32 = max(max_err_fp32, err)
-    # the same wide case with w2 unscaled: the kernel and the plain version
+            if label is not None and act == "silu":
+                key = (dtype, label)
+                max_err[key] = max(max_err.get(key, 0.0), err)
+    # the wide case with w2 unscaled: the kernel and the plain version
     # against a float64 evaluation
-    l1_a, l1_b, r, u, w2 = pair_inputs(*PAIR_SHAPES[1][1:5], torch.float32,
-                                       wide=True)
+    l1_a, l1_b, r, u, w2 = pair_inputs(*dock[1:5], torch.float32, wide=True)
     got = edge_gate.phi_rank1_pair(l1_a, l1_b, r, u, w2)
     plain = edge_gate.phi_rank1_pair_reference(l1_a, l1_b, r, u, w2)
     l1_a, l1_b, r, u, w2 = (t.double() for t in (l1_a, l1_b, r, u, w2))
@@ -224,15 +266,15 @@ def check_kernels() -> float:
           "edge_gate pair +-100 w2 unscaled: finite")
     errs = [max((a.double() - e).abs().max().item() for a, e in zip(x, exact))
             for x in (got, plain)]
-    print(f"edge_gate pair {PAIR_SHAPES[1][0]} silu fp32 pre-activation "
-          f"+-100, w2 unscaled, against float64: kernel max_abs_err "
-          f"{errs[0]:.3e}, plain fp32 max_abs_err {errs[1]:.3e} (limit "
-          f"{WIDE_ERR_RATIO} x plain)")
+    print(f"edge_gate pair {dock[0]} silu fp32 pre-activation +-100, w2 "
+          f"unscaled, against float64: kernel max_abs_err {errs[0]:.3e}, "
+          f"plain fp32 max_abs_err {errs[1]:.3e} (limit {WIDE_ERR_RATIO} x "
+          f"plain)")
     check(errs[0] <= WIDE_ERR_RATIO * errs[1],
           f"edge_gate pair +-100 w2 unscaled: kernel error {errs[0]:.3e} vs "
           f"float64 above {WIDE_ERR_RATIO} x plain fp32's {errs[1]:.3e}")
     for name, B, D, N, H, _ in SINGLE_SHAPES + [RAGGED]:
-        for dtype in dtypes:
+        for dtype in DTYPES:
             for act in ("silu", "relu"):
                 args = gate_inputs(B, D, N, H, dtype)
                 got = edge_gate.phi_rank1(*args, act=act)
@@ -264,7 +306,7 @@ def check_kernels() -> float:
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
     print("edge_gate backward (one direction and pair) matches autograd "
           "through the plain version")
-    return max_err_fp32
+    return max_err
 
 
 def make_requests(n: int, seed: int):
@@ -301,10 +343,271 @@ def make_requests(n: int, seed: int):
     return raws
 
 
+class BucketLaunches:
+    """Gate launches and batches per bucket while an engine serves: wraps
+    the engine's run_batch and attributes the change of the kernel's own
+    launch count across each call (the launches are made on the host inside
+    the call) to the batch's bucket."""
+
+    def __init__(self, engine):
+        self.launches, self.batches = {}, {}
+        run = engine.run_batch
+
+        def counted(batch, cfg_b):
+            before = edge_gate.KERNEL.launches
+            out = run(batch, cfg_b)
+            label = bucket_label(cfg_b.shapes)
+            self.launches[label] = (self.launches.get(label, 0)
+                                    + edge_gate.KERNEL.launches - before)
+            self.batches[label] = self.batches.get(label, 0) + 1
+            return out
+
+        engine.run_batch = counted
+
+
+def check_poses(poses, raws, what):
+    check(len(poses) == len(raws), f"{what}: one pose per request")
+    for p, raw in zip(poses, raws):
+        check(p.error is None, f"{what}: pose error {p.error}")
+        check(p.coords.shape == raw["lig_coords"].shape, f"{what}: shape")
+        check(p.coords.dtype == np.float32, f"{what}: float32 coords")
+        check(bool(np.isfinite(p.coords).all()), f"{what}: finite pose")
+
+
+def pose_dist(a_poses, b_poses) -> np.ndarray:
+    """Per-atom distances between two pose lists of the same requests."""
+    return np.concatenate([np.linalg.norm(a.coords - b.coords, axis=-1)
+                           for a, b in zip(a_poses, b_poses)])
+
+
+def batch_dist(a, b, batch) -> np.ndarray:
+    """Per-atom distances between two [B, Nc, 3] batch outputs over the
+    batch's real atoms."""
+    m = batch.lig_mask & batch.sample_valid[:, None]
+    return (a.float() - b.float()).norm(dim=-1)[m].cpu().numpy()
+
+
+def first_batches(engine, by_bucket):
+    """One device batch per bucket: (label, cfg_b, batch), built from that
+    bucket's first BATCH requests."""
+    out = []
+    for label, raws in by_bucket.items():
+        (_, cfg_b, batch, _), = list(engine.batches(raws[:BATCH],
+                                                    [None] * BATCH))
+        out.append((label, cfg_b, batch))
+    return out
+
+
+def run_plain_gate(engine, batch, cfg_b):
+    """One batch with the gate's plain version in place of the kernel."""
+    orig = layers.phi_rank1_pair
+    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
+    try:
+        return engine.run_batch(batch, cfg_b)
+    finally:
+        layers.phi_rank1_pair = orig
+
+
+def serve_main_path(engine, raws, what):
+    """dock_raw of every request with the counts set to 0 just before and
+    read just after: (poses, BucketLaunches, total launches, seconds)."""
+    counter = BucketLaunches(engine)
+    edge_gate.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    poses = engine.dock_raw(raws)
+    first_s = time.perf_counter() - t0
+    launches = edge_gate.KERNEL.launches
+    print(f"{what} dock_raw: {len(poses)} poses, first call {first_s:.3f} s, "
+          f"edge_gate launches {launches}, by bucket "
+          f"{counter.launches} in batches {counter.batches}")
+    check_poses(poses, raws, what)
+    check(sum(counter.launches.values()) == launches,
+          f"{what}: launches outside the batches")
+    per_batch = sum(s[-1] for s in served_pair_shapes(engine.cfg))
+    for label, n in counter.launches.items():
+        check(n == per_batch * counter.batches[label],
+              f"{what}: bucket {label} launched the gate {n} times in "
+              f"{counter.batches[label]} batches, expected {per_batch} per "
+              f"batch")
+    del engine.run_batch             # back to the class's method
+    return poses, counter, launches, first_s
+
+
+def time_engine(engine, batches, raws, what, card_line):
+    """Batch latency per bucket (host clock around work that ends in
+    synchronize) and dock_raw complexes/s; returns {label: median ms} and
+    one sync_batch callable per label."""
+    lat, syncs = {}, {}
+    for label, cfg_b, batch in batches:
+        def sync_batch(batch=batch, cfg_b=cfg_b):
+            engine.run_batch(batch, cfg_b)
+            torch.cuda.synchronize()
+
+        sync_batch()
+        batch_s = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            sync_batch()
+            batch_s.append(time.perf_counter() - t0)
+        lat[label], syncs[label] = statistics.median(batch_s) * 1e3, \
+            sync_batch
+        print(f"time {what} model batch bucket {label} ({BATCH} complexes, "
+              f"device path): median {lat[label]:.2f} ms of "
+              f"{[round(s * 1e3, 2) for s in batch_s]} [{card_line}]")
+    e2e_s = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        engine.dock_raw(raws)
+        e2e_s.append(time.perf_counter() - t0)
+    e2e = statistics.median(e2e_s)
+    print(f"time {what} dock_raw {len(raws)} requests (featurize + collate "
+          f"+ model + unpack, protein cache warm): median {e2e:.3f} s, "
+          f"{len(raws) / e2e:.2f} complexes/s [{card_line}]")
+    return lat, syncs
+
+
+def http_round_trip(engine, raws):
+    """The serving daemon on 127.0.0.1 in a thread: /health, then /dock_raw
+    with the npz of `raws`; its poses must equal engine.dock_raw's."""
+    srv = make_server(engine, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=60) as r:
+            health = json.loads(r.read())
+        check(health["status"] == "ok" and health["bf16"] is True,
+              f"/health {health}")
+        buf = io.BytesIO()
+        np.savez(buf, **{f"r{i}_{k}": v for i, raw in enumerate(raws)
+                         for k, v in raw.items()})
+        req = urllib.request.Request(
+            base + "/dock_raw", data=buf.getvalue(), method="POST",
+            headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            got = json.loads(r.read())
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=60)
+    check(not t.is_alive(), "HTTP server thread stopped")
+    want = engine.dock_raw(raws)
+    check(len(got) == len(want), "HTTP: one pose per request")
+    for g, w in zip(got, want):
+        check(g["error"] is None and w.error is None, "HTTP pose error")
+        check(np.array_equal(np.asarray(g["coords"], np.float32), w.coords),
+              "HTTP poses equal engine.dock_raw's")
+    print(f"http: /health {health}; /dock_raw {len(got)} poses equal "
+          f"engine.dock_raw's")
+
+
+def pocket_center(engine, batch, cfg_b):
+    """The served pocket center of each sample of a batch: the rounded
+    sigmoid center of the pocket stage's logits."""
+    m = engine.cfg.model
+    with torch.inference_mode():
+        _, _, cls = engine.model._pocket_pred(batch, cfg_b.shapes)
+        return pocket_center_rounded(cls, batch.prot_xyz, batch.prot_mask,
+                                     m.gs_tau, m.gs_hard)
+
+
+def explain_bf16_gap(engine16, engine32, b16, b32, cfg_b, label):
+    """Where the bf16-vs-fp32 pose difference comes from, on one batch:
+    the distance between the two engines' pocket centers, and the per-atom
+    pose distance with each engine's own center and with the bf16 engine
+    given the fp32 engine's center."""
+    c16, c32 = (pocket_center(e, b, cfg_b)
+                for e, b in ((engine16, b16), (engine32, b32)))
+    x32 = engine32.run_batch(b32, cfg_b)[0]
+    x16 = engine16.run_batch(b16, cfg_b)[0]
+    with torch.inference_mode():
+        x16c = engine16.model.inference_diag(
+            b16, center_override=c32.to(torch.bfloat16),
+            shapes=cfg_b.shapes)[0]
+    dc = (c16.float() - c32).norm(dim=-1)[b32.sample_valid].cpu().numpy()
+    own, held = (batch_dist(x, x32, b32) for x in (x16, x16c))
+    print(f"bf16 vs fp32 batch bucket {label}: pocket centers apart mean "
+          f"{dc.mean():.3f} A, max {dc.max():.3f} A; per-atom pose distance "
+          f"mean {own.mean():.3f} A with the bf16 center, {held.mean():.3f} A "
+          f"with the fp32 center")
+
+
+def check_postopt(engine, cfg_b, batch):
+    """post_optim_steps on one batch: finite poses, and the configuration
+    loss (fp32, over the real samples) not higher than without it."""
+    coords0 = engine.run_batch(batch, cfg_b)[0]
+    engine.post_optim_steps = POSTOPT_STEPS
+    try:
+        coords1 = engine.run_batch(batch, cfg_b)[0]
+    finally:
+        engine.post_optim_steps = 0
+    check(bool(torch.isfinite(coords1).all()), "post-optimized poses finite")
+    ref = batch.lig_rdkit_coords.float()
+    valid = batch.sample_valid
+    loss0, loss1 = (configuration_loss(c.float(), pairwise_dist(ref, ref),
+                                       batch.las_adj, batch.lig_mask)[valid]
+                    .sum().item() for c in (coords0, coords1))
+    print(f"post-optimization ({POSTOPT_STEPS} Adam steps, "
+          f"{str(coords1.dtype)[6:]}): configuration loss {loss0:.2f} -> "
+          f"{loss1:.2f}")
+    check(loss1 <= loss0, f"post-optimization raised the loss {loss0} -> "
+          f"{loss1}")
+
+
+def time_kernel_rows(served, max_err, launches, sms, clock_hz, card_line):
+    """Kernel and plain times at each bucket's shapes, in each dtype: one
+    JSON row per (dtype, bucket), means per launch weighted by the launches
+    per batch, with this run's launch counts."""
+    rows = []
+    for dtype in DTYPES:
+        tag = str(dtype)[6:]
+        for label, shapes in served.items():
+            per = []
+            for name, B, Na, Nb, H, per_batch in shapes:
+                a = pair_inputs(B, Na, Nb, H, dtype)
+                k_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair(*a))
+                p_ms = cuda_time_ms(
+                    lambda: edge_gate.phi_rank1_pair_reference(*a))
+                b_ms = gate_bound_ms(B, Na, Nb, H, pair=True,
+                                     elem_bytes=dtype.itemsize)
+                f_ms = sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=True)
+                per.append((per_batch, k_ms, p_ms, b_ms, f_ms))
+                print(f"time edge_gate pair {name} [{B},{Na},{Nb},{H}] "
+                      f"{tag} silu (bucket {label}): kernel {k_ms:.4f} ms, "
+                      f"plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, MUFU "
+                      f"floor {f_ms:.4f} ms [{card_line}]")
+            n = sum(r[0] for r in per)
+            k_ms, p_ms, b_ms, f_ms = (sum(r[0] * r[i] for r in per) / n
+                                      for i in (1, 2, 3, 4))
+            print(f"time edge_gate {tag} bucket {label} per main-path launch "
+                  f"(mean over {n} launches of a batch): kernel "
+                  f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, "
+                  f"MUFU floor {f_ms:.4f} ms; device time per batch "
+                  f"{k_ms * n:.4f} ms [{card_line}]")
+            rows.append({
+                "name": f"edge_gate {tag} bucket {label}", "route": "cuda",
+                "source": "fabind_tpu_torch/csrc/edge_gate.cu",
+                "replaces": "fabind_tpu/ops/pallas/edge_gate.py:63",
+                "launches": launches[dtype].get(label, 0),
+                "max_abs_err": max_err[(dtype, label)],
+                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                "bound_by": "operations", "library_ms": None})
+    for name, B, D, N, H, _ in SINGLE_SHAPES:
+        a = gate_inputs(B, D, N, H, torch.float32)
+        t_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
+        print(f"time edge_gate one direction {name} [{B},{D},{N},{H}] fp32 "
+              f"silu: kernel {t_ms:.4f} ms, fp32 bound "
+              f"{gate_bound_ms(B, D, N, H):.4f} ms, MUFU floor "
+              f"{sfu_floor_ms(B, D, N, H, sms, clock_hz):.4f} ms "
+              f"[{card_line}]")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="PATH",
-                    help="write a torch.profiler table of one batch here")
+                    help="write a torch.profiler table of one bf16 batch "
+                         "of each bucket beside PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -326,110 +629,117 @@ def main(argv=None) -> int:
             print("ptxas:", line.strip())
     print_sass_mufu(edge_gate.KERNEL.lib_path)
 
-    # ---- 2. kernels against their plain versions
-    max_err = check_kernels()
-
-    # ---- 3. the main path
+    # ---- 2. kernels against their plain versions, at every served shape
     cfg = preset("fabind", **SMOKE_SHAPES)
-    engine = DockingEngine(cfg, batch_size=BATCH, seed=0)
-    raws = make_requests(N_REQUESTS, seed=0)
-    n_batches = -(-N_REQUESTS // BATCH)
-    edge_gate.KERNEL.launches = 0
-    t0 = time.perf_counter()
-    poses = engine.dock_raw(raws)
-    first_s = time.perf_counter() - t0
-    launches = edge_gate.KERNEL.launches
-    print(f"dock_raw: {len(poses)} poses, first call {first_s:.3f} s, "
-          f"edge_gate launches {launches}")
-    check(len(poses) == N_REQUESTS, "one pose per request")
-    for p, raw in zip(poses, raws):
-        check(p.error is None, f"pose error {p.error}")
-        check(p.coords.shape == raw["lig_coords"].shape, "pose shape")
-        check(bool(np.isfinite(p.coords).all()), "finite pose")
-    check(launches == GATE_LAUNCHES_PER_BATCH * n_batches,
-          f"edge_gate launched {launches} times on the main path, expected "
-          f"{GATE_LAUNCHES_PER_BATCH} per batch")
+    buckets = resolve_buckets(BUCKETS, cfg)
+    served = {bucket_label(s): served_pair_shapes(cfg.replace(shapes=s))
+              for s in buckets}
+    max_err = check_kernels(served)
+
+    # ---- 3. the main path as deployed: bf16, two buckets
+    raws = make_requests(N_REQUESTS, seed=REQUEST_SEED)
+    engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    warm = {"bf16": engine.warmup()}
+    print(f"time bf16 warmup ({len(buckets)} buckets): {warm['bf16']:.3f} s "
+          f"[{card_line}]")
+    by_bucket = {bucket_label(s): [] for s in buckets}
+    for raw in raws:
+        c = route_sample(build_sample(raw, cfg, group="test"),
+                         engine.bucket_cfgs)
+        by_bucket[bucket_label(c.shapes)].append(raw)
+    print("requests per bucket:", {k: len(v) for k, v in by_bucket.items()})
+    for label, rs in by_bucket.items():
+        check(len(rs) >= MIN_PER_BUCKET,
+              f"bucket {label} serves {len(rs)} < {MIN_PER_BUCKET} requests")
+    poses, counter, launches, _ = serve_main_path(engine, raws, "bf16")
+    main_launches = {torch.bfloat16: counter.launches}
     print("pocket_truncated per request:", [p.pocket_truncated for p in poses])
 
-    results = [None] * BATCH
-    (chunk, batch, n_real), = list(engine.batches(raws[:BATCH], results))
-    kernel_coords = engine.run_batch(batch)[0]
-    # the same batch with the gate's plain version in place of the kernel
-    orig = layers.phi_rank1_pair
-    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
-    try:
-        plain_coords = engine.run_batch(batch)[0]
-    finally:
-        layers.phi_rank1_pair = orig
-    diff = (kernel_coords - plain_coords).abs().max().item()
-    print(f"dock batch, kernel vs plain gate: max coordinate difference "
-          f"{diff:.3e} A (tolerance {POSE_TOL_A} A)")
-    check(diff <= POSE_TOL_A, f"kernel vs plain pose difference {diff}")
+    batches = first_batches(engine, by_bucket)
+    for label, cfg_b, batch in batches:
+        kernel = engine.run_batch(batch, cfg_b)[0]
+        plain = run_plain_gate(engine, batch, cfg_b)[0]
+        d = batch_dist(kernel, plain, batch)
+        print(f"bf16 batch bucket {label}, kernel vs plain gate: per-atom "
+              f"distance mean {d.mean():.3e} A, max {d.max():.3e} A "
+              f"(mean limit {BF16_POSE_MEAN_TOL_A} A)")
+        check(d.mean() <= BF16_POSE_MEAN_TOL_A,
+              f"bf16 kernel vs plain gate mean {d.mean()} A")
 
-    # ---- 4. times
-    rows = []
-    for name, B, Na, Nb, H, per_batch in PAIR_SHAPES:
-        a = pair_inputs(B, Na, Nb, H, torch.float32)
-        k_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair(*a))
-        p_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair_reference(*a))
-        b_ms = gate_bound_ms(B, Na, Nb, H, pair=True)
-        f_ms = sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=True)
-        rows.append((per_batch, k_ms, p_ms, b_ms, f_ms))
-        print(f"time edge_gate pair {name} [{B},{Na},{Nb},{H}] fp32 silu: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fp32 bound "
-              f"{b_ms:.4f} ms, MUFU floor {f_ms:.4f} ms [{card_line}]")
-    n = sum(r[0] for r in rows)
-    k_ms, p_ms, b_ms, f_ms = (sum(r[0] * r[i] for r in rows) / n
-                              for i in (1, 2, 3, 4))
-    print(f"time edge_gate per main-path launch (mean over {n} launches of a "
-          f"batch): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, fp32 bound "
-          f"{b_ms:.4f} ms, MUFU floor {f_ms:.4f} ms [{card_line}]")
-    print(f"time edge_gate device time per batch ({n} launches): kernel "
-          f"{k_ms * n:.4f} ms, MUFU floor {f_ms * n:.4f} ms [{card_line}]")
-    for name, B, D, N, H, _ in SINGLE_SHAPES:
-        a = gate_inputs(B, D, N, H, torch.float32)
-        t_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
-        print(f"time edge_gate one direction {name} [{B},{D},{N},{H}] fp32 "
-              f"silu: kernel {t_ms:.4f} ms, fp32 bound "
-              f"{gate_bound_ms(B, D, N, H):.4f} ms, MUFU floor "
-              f"{sfu_floor_ms(B, D, N, H, sms, clock_hz):.4f} ms "
-              f"[{card_line}]")
+    # dock_screen: one protein, N_SCREEN ligands, against dock_raw
+    protein = {k: raws[0][k] for k in ("protein_xyz", "esm_feat")}
+    ligs = [{k: v for k, v in r.items() if k not in protein}
+            for r in raws[:N_SCREEN]]
+    screened = engine.dock_screen(protein, ligs)
+    direct = engine.dock_raw([dict(lig, **protein) for lig in ligs])
+    check_poses(screened, ligs, "dock_screen")
+    d = pose_dist(screened, direct)
+    print(f"dock_screen {N_SCREEN} ligands vs dock_raw: max per-atom "
+          f"distance {d.max():.3e} A")
+    check(d.max() == 0.0, "dock_screen equals dock_raw")
 
-    def sync_batch():
-        engine.run_batch(batch)
-        torch.cuda.synchronize()
+    # the protein cache: a second call, every protein row a hit
+    again = engine.dock_raw(raws)
+    d = pose_dist(again, poses)
+    print(f"dock_raw again (protein cache warm, {len(engine._dev_prot_rows)} "
+          f"rows): max per-atom distance to the first call {d.max():.3e} A")
+    check(d.max() == 0.0, "protein cache bit-identical")
 
-    batch_s = []
-    for _ in range(5):
-        t0 = time.perf_counter()
-        sync_batch()
-        batch_s.append(time.perf_counter() - t0)
-    e2e_s = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        engine.dock_raw(raws)
-        e2e_s.append(time.perf_counter() - t0)
-    lat = statistics.median(batch_s)
-    e2e = statistics.median(e2e_s)
-    print(f"time model batch ({BATCH} complexes, device path): median "
-          f"{lat * 1e3:.2f} ms of {[round(s * 1e3, 2) for s in batch_s]} "
+    check_postopt(engine, batches[-1][1], batches[-1][2])
+    http_round_trip(engine, raws[:BATCH])
+
+    # ---- 4a. times, bf16 engine
+    torch.cuda.reset_peak_memory_stats()
+    lat16, syncs = time_engine(engine, batches, raws, "bf16", card_line)
+    print(f"peak device memory bf16 engine (timed batches and dock_raw): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card_line}]")
-    print(f"time dock_raw {N_REQUESTS} requests (featurize + collate + "
-          f"model + unpack): median {e2e:.3f} s, "
-          f"{N_REQUESTS / e2e:.2f} complexes/s [{card_line}]")
-    print(f"peak device memory: "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-
     if args.profile:
-        profile_batch(sync_batch, args.profile, lat * 1e3, card_line)
+        for label in syncs:
+            out = Path(args.profile)
+            out = out.with_name(f"{out.stem}_{label.replace(':', '-')}"
+                                f"{out.suffix}")
+            profile_batch(syncs[label], str(out), lat16[label],
+                          f"bucket {label}", card_line)
+    del syncs
 
-    print(json.dumps({"kernels": [{
-        "name": "edge_gate", "route": "cuda",
-        "source": "fabind_tpu_torch/csrc/edge_gate.cu",
-        "replaces": "fabind_tpu/ops/pallas/edge_gate.py:63",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-        "bound_by": "operations", "library_ms": None}]}))
+    # ---- 3b. the same requests through an fp32 engine
+    engine32 = DockingEngine(cfg, buckets=buckets, batch_size=BATCH,
+                             bf16=False, seed=0)
+    warm["fp32"] = engine32.warmup()
+    print(f"time fp32 warmup ({len(buckets)} buckets): {warm['fp32']:.3f} s "
+          f"[{card_line}]")
+    poses32, counter, _, _ = serve_main_path(engine32, raws, "fp32")
+    main_launches[torch.float32] = counter.launches
+    d = pose_dist(poses, poses32)
+    print(f"bf16 vs fp32 engine, {len(d)} atoms: per-atom distance mean "
+          f"{d.mean():.3f} A, max {d.max():.3f} A (mean limit "
+          f"{BF16_VS_FP32_MEAN_TOL_A} A)")
+    check(d.mean() < BF16_VS_FP32_MEAN_TOL_A, f"bf16 vs fp32 mean {d.mean()}")
+    batches32 = first_batches(engine32, by_bucket)
+    for (label, cfg_b, b16), (_, _, b32) in zip(batches, batches32):
+        explain_bf16_gap(engine, engine32, b16, b32, cfg_b, label)
+    del engine, batches
+    torch.cuda.empty_cache()
+    engine, batches = engine32, batches32
+    label, cfg_b, batch = batches[-1]
+    diff = (engine.run_batch(batch, cfg_b)[0]
+            - run_plain_gate(engine, batch, cfg_b)[0]).abs().max().item()
+    print(f"fp32 batch bucket {label}, kernel vs plain gate: max coordinate "
+          f"difference {diff:.3e} A (tolerance {POSE_TOL_A} A)")
+    check(diff <= POSE_TOL_A, f"kernel vs plain pose difference {diff}")
+    torch.cuda.reset_peak_memory_stats()
+    time_engine(engine, batches, raws, "fp32", card_line)
+    print(f"peak device memory fp32 engine (timed batches and dock_raw): "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card_line}]")
+    del engine, batches
+    torch.cuda.empty_cache()
+
+    # ---- 4b. kernel times
+    rows = time_kernel_rows(served, max_err, main_launches, sms, clock_hz,
+                            card_line)
+    print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
@@ -460,7 +770,7 @@ def print_sass_mufu(lib_path) -> None:
         print(f"sass {fn}: MUFU {dict(sorted(c.items())) or 'none'}")
 
 
-def profile_batch(sync_batch, path: str, batch_ms: float,
+def profile_batch(sync_batch, path: str, batch_ms: float, what: str,
                   card_line: str) -> None:
     """Device time by kernel over one docking batch, written to `path`, and
     a summary line: device busy time against the (unprofiled) median batch
@@ -485,7 +795,7 @@ def profile_batch(sync_batch, path: str, batch_ms: float,
     mm_ms = sum(e.self_device_time_total for e in mm) / 1e3
     mm_flop = sum(e.flops for e in mm)
     check(busy_ms > 0, "the profiler recorded no device time")
-    print(f"profile one batch: device busy {busy_ms:.2f} ms of a "
+    print(f"profile one batch {what}: device busy {busy_ms:.2f} ms of a "
           f"{batch_ms:.2f} ms batch (idle share "
           f"{max(0.0, 1 - busy_ms / batch_ms):.3f}); matmuls {mm_ms:.2f} ms "
           f"({mm_ms / busy_ms:.3f} of busy), {mm_flop / 1e12:.3f} TFLOP, "

@@ -291,3 +291,20 @@ def preset(name: str, **overrides) -> FABindConfig:
             train=dataclasses.replace(cfg.train, **train_kw),
         )
     return cfg
+
+
+def parse_overrides(pairs) -> dict:
+    """`--set KEY=VALUE` strings -> a typed override dict for `preset`
+    (int, then float, then true/false, else the string)."""
+    out = {}
+    for kv in pairs:
+        k, v = kv.split("=", 1)
+        try:
+            v = int(v)
+        except ValueError:
+            try:
+                v = float(v)
+            except ValueError:
+                v = {"true": True, "false": False}.get(v.lower(), v)
+        out[k] = v
+    return out

@@ -59,18 +59,29 @@ class FABindBatch:
     def from_numpy(cls, arrays: Dict[str, Optional[np.ndarray]],
                    device) -> "FABindBatch":
         """Numpy arrays (as `data.batching.collate` returns them) -> a batch
-        on `device`. Index tables become int64."""
+        on `device`. Index tables become int64. A value that is already a
+        tensor is taken as it is (rows kept on the device)."""
         out = {}
         for f in dataclasses.fields(cls):
             a = arrays.get(f.name)
-            if a is None:
-                out[f.name] = None
+            if a is None or isinstance(a, torch.Tensor):
+                out[f.name] = a
                 continue
             t = torch.from_numpy(np.ascontiguousarray(a))
             if f.name in _INDEX_FIELDS:
                 t = t.long()
-            out[f.name] = t.to(device)
+            out[f.name] = to_device(t, device)
         return cls(**out)
+
+
+def to_device(t: Tensor, device) -> Tensor:
+    """A host tensor on `device`. To a CUDA device it goes through pinned
+    memory without blocking the host (the copy is ordered on the current
+    stream before the kernels that read it)."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
 def dummy_arrays(shapes, batch_size: int = 2, seed: int = 0,

@@ -39,23 +39,25 @@ class EfficientMCAttModel(nn.Module):
             rm_layernorm=cfg.rm_layernorm)
 
     def _step(self, h: Tensor, x: Tensor, gi: GraphInputs, pair_embed: Tensor,
-              pair_mask: Tensor):
+              pair_mask: Tensor, ctx_k: int):
         cfg = self.cfg
         h_out, z, pair_out = self.gnn(
             h, x, gi, pair_embed, pair_mask, cfg.normalize(cfg.intra_cutoff),
-            cfg.normalize(cfg.inter_cutoff), self.ctx_k)
+            cfg.normalize(cfg.inter_cutoff), ctx_k)
         movable = gi.layout.movable(x.device)[None, :, None]
         return h_out, torch.where(movable, z, x), pair_out
 
     def forward(self, x: Tensor, h: Tensor, gi: GraphInputs,
-                n_iter: Optional[int] = None):
+                n_iter: Optional[int] = None, ctx_k: Optional[int] = None):
         """x: [B, N, 3] normalized complex coords; h: [B, N, embed_size].
-        Returns (x_out, h_out, pair_embed_out)."""
+        ctx_k overrides the ctx graph's K (a shape bucket's). Returns
+        (x_out, h_out, pair_embed_out)."""
         if self.training and self.cfg.random_n_iter and n_iter is None:
             raise NotImplementedError(
                 "random recycle counts (training) are ported with the "
                 "training slice")
         n_iter = self.n_iter if n_iter is None else n_iter
+        ctx_k = self.ctx_k if ctx_k is None else ctx_k
         layout = gi.layout
         p_mask_side, c_mask_side = gi.side_masks()
         pair_embed, pair_mask = self.inter_layer(
@@ -66,7 +68,7 @@ class EfficientMCAttModel(nn.Module):
         x = x.detach()
         with torch.no_grad():
             for _ in range(n_iter - 1):
-                _, x, _ = self._step(h, x, gi, pair_embed, pair_mask)
+                _, x, _ = self._step(h, x, gi, pair_embed, pair_mask, ctx_k)
         h_out, x, pair_out = self._step(h, x.detach(), gi, pair_embed,
-                                        pair_mask)
+                                        pair_mask, ctx_k)
         return x, h_out, pair_out

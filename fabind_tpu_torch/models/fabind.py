@@ -116,7 +116,7 @@ class FABind(nn.Module):
             las_ref=self.cfg.normalize(batch.lig_rdkit_coords))
 
     # ---------------------------------------------------------- pocket stage
-    def _pocket_pred(self, batch: FABindBatch):
+    def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig):
         """Whole-protein pocket prediction: (compound_out [B,Nc,C],
         protein_out [B,Nr,C], cls_logits [B,Nr])."""
         cfg = self.cfg
@@ -131,7 +131,8 @@ class FABind(nn.Module):
         x = cfg.normalize(self._complex_x(init_centered, batch.prot_xyz))
 
         gi = self._graph_inputs(batch, batch.prot_mask)
-        _, h_out, _ = self.pocket_pred_model(x, h, gi)
+        _, h_out, _ = self.pocket_pred_model(x, h, gi,
+                                             ctx_k=shapes.ctx_k_whole)
         h_out = self.embedding_enlarge(h_out)
         layout = gi.layout
         compound_out = h_out[:, layout.lig_slice]
@@ -141,7 +142,8 @@ class FABind(nn.Module):
         return compound_out, protein_out, cls_logits
 
     # ------------------------------------------------------------------ crop
-    def _predicted_crop(self, center: Tensor, batch: FABindBatch):
+    def _predicted_crop(self, center: Tensor, batch: FABindBatch,
+                        shapes: ShapeConfig):
         """Residues within the pocket radius of the predicted center (plus
         the first 100 residues when fewer than 5 are kept), packed into the
         Np pocket slots: (idx, mask, less5, overflow)."""
@@ -152,7 +154,7 @@ class FABind(nn.Module):
         fallback = (first100 | keep) & batch.prot_mask
         less5 = keep.sum(1) < 5
         keep = torch.where(less5[:, None], fallback, keep)
-        idx, mask, overflow = G.compact_keep_mask(keep, self.shapes.max_pocket)
+        idx, mask, overflow = G.compact_keep_mask(keep, shapes.max_pocket)
         return idx, mask, less5, overflow
 
     # --------------------------------------------------------------- forward
@@ -160,7 +162,9 @@ class FABind(nn.Module):
         """Eval forward: stage 1 docks into the precomputed pocket crop,
         stage 2 into the predicted one."""
         self._check_supported()
-        compound_out, protein_out, cls_logits = self._pocket_pred(batch)
+        shapes = self.shapes
+        compound_out, protein_out, cls_logits = self._pocket_pred(batch,
+                                                                  shapes)
         cfg = self.cfg
         pred_center = pocket_center_from_cls(
             cls_logits, batch.prot_xyz, batch.prot_mask, cfg.gs_tau,
@@ -168,14 +172,14 @@ class FABind(nn.Module):
         B = batch.batch_size
         if stage == 2:
             pkt_idx, pkt_mask, keep_less_5, overflow = self._predicted_crop(
-                pred_center.detach(), batch)
+                pred_center.detach(), batch, shapes)
         else:
             pkt_idx, pkt_mask = batch.pocket_idx, batch.pocket_mask
             keep_less_5 = torch.zeros(B, dtype=torch.bool,
                                       device=pkt_idx.device)
             overflow = torch.zeros(B, dtype=torch.long, device=pkt_idx.device)
         out = self._dock(batch, compound_out, protein_out, pkt_idx, pkt_mask,
-                         stage == 2)
+                         stage == 2, shapes.ctx_k)
         coords, y_pred, y_by_coord, dis_map, pair_valid, ctx_overflow = out
         return FABindOutput(
             coords=coords, y_pred=y_pred, y_pred_by_coord=y_by_coord,
@@ -195,7 +199,7 @@ class FABind(nn.Module):
     # --------------------------------------------------------------- docking
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
               protein_out: Tensor, pkt_idx: Tensor, pkt_mask: Tensor,
-              use_stage2: bool):
+              use_stage2: bool, ctx_k: int):
         """Build the docking complex from a pocket selection and run the
         complex model and the heads."""
         cfg = self.cfg
@@ -217,9 +221,8 @@ class FABind(nn.Module):
         x = cfg.normalize(self._complex_x(lig_init, pkt_xyz))
         gi = self._graph_inputs(batch, pkt_mask)
         ctx_overflow = G.ctx_overflow_count(
-            x, gi.layout, pkt_mask, cfg.normalize(cfg.intra_cutoff),
-            self.shapes.ctx_k)
-        x_out, h_out, _ = self.complex_model(x, h, gi)
+            x, gi.layout, pkt_mask, cfg.normalize(cfg.intra_cutoff), ctx_k)
+        x_out, h_out, _ = self.complex_model(x, h, gi, ctx_k=ctx_k)
 
         layout = gi.layout
         coords_n = x_out[:, layout.lig_slice]
@@ -244,22 +247,26 @@ class FABind(nn.Module):
 
     # ------------------------------------------------------------- inference
     def inference_diag(self, batch: FABindBatch,
-                       center_override: Optional[Tensor] = None):
+                       center_override: Optional[Tensor] = None,
+                       shapes: Optional[ShapeConfig] = None):
         """Predicted-pocket inference: the rounded-sigmoid pocket center
-        (no-random gumbel fallback), the predicted crop, docking. Returns
-        (coords [B,Nc,3], confidence [B] (zeros for base), pocket_overflow
-        [B])."""
+        (no-random gumbel fallback), the predicted crop, docking, in the
+        shape bucket `shapes` (default self.shapes: one module, with one copy
+        of the weights, serves every bucket). Returns (coords [B,Nc,3],
+        confidence [B] (zeros for base), pocket_overflow [B])."""
         self._check_supported()
         cfg = self.cfg
-        compound_out, protein_out, cls_logits = self._pocket_pred(batch)
+        shapes = shapes or self.shapes
+        compound_out, protein_out, cls_logits = self._pocket_pred(batch,
+                                                                  shapes)
         center = pocket_center_rounded(cls_logits, batch.prot_xyz,
                                        batch.prot_mask, cfg.gs_tau,
                                        cfg.gs_hard)
         if center_override is not None:
             center = center_override
-        idx, mask, _, overflow = self._predicted_crop(center, batch)
+        idx, mask, _, overflow = self._predicted_crop(center, batch, shapes)
         coords = self._dock(batch, compound_out, protein_out, idx, mask,
-                            True)[0]
+                            True, shapes.ctx_k)[0]
         confidence = torch.zeros(batch.batch_size, dtype=coords.dtype,
                                  device=coords.device)
         return coords, confidence, overflow

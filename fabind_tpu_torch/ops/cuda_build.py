@@ -36,7 +36,8 @@ def find_nvcc() -> str:
 
 class CudaKernel:
     """One kernel source: its library, built on demand, and the count of
-    launches its wrapper made (the wrapper adds one per launch)."""
+    launches its wrapper made (the wrapper calls `count_launch` once per
+    launch; callers read and reset `launches`)."""
 
     def __init__(self, source: str,
                  symbols: Dict[str, Tuple[Sequence, object]]):
@@ -73,6 +74,12 @@ class CudaKernel:
             raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
                                f"{self.build_log}")
         os.replace(tmp, self.lib_path)
+
+    def count_launch(self) -> None:
+        """Add one launch. Under the lock: `+=` is a read-modify-write, and
+        the serving daemon launches from several threads."""
+        with self._lock:
+            self.launches += 1
 
     @property
     def lib(self) -> ctypes.CDLL:

@@ -139,7 +139,7 @@ def _launch(l1_a: Optional[Tensor], l1_b: Tensor, r: Tensor, u: Tensor,
             _ACT_IDS[act], _DTYPE_IDS[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"edge_gate kernel launch failed: CUDA error {err}")
-    KERNEL.launches += 1
+    KERNEL.count_launch()
     return out_ab, out_ba
 
 

@@ -1,0 +1,166 @@
+"""HTTP serving daemon around the port's `DockingEngine` (stdlib only).
+
+Own copy of fabind_tpu/serve_http.py for the raw-tensor routes: the weights
+load once, then requests are served until shutdown.
+
+Endpoints:
+  GET  /health    -> {"status": "ok", "batch_size": N, "bf16": bool,
+                      "buckets": [[lig, pocket, protein], ...]}
+  POST /dock_raw  -> body: .npz bytes; the arrays of request i carry the
+                     prefix "r{i}_" (r0_lig_coords, r0_lig_feats,
+                     r0_bond_edges, r0_las_mask, r0_rdkit_coords,
+                     r0_protein_xyz, r0_esm_feat); un-prefixed arrays are
+                     shared by every request. Response: a JSON list of
+                     {coords, confidence, error[, pocket_truncated]} in
+                     request order.
+  POST /screen    -> body: .npz bytes; one protein under "protein_xyz" and
+                     "esm_feat", the ligands under "r{i}_" prefixes. Same
+                     response.
+Any other path answers 404. (/dock, /dock_sdf and /dock_best_of of the JAX
+daemon need featurization from files and sampling, which the port does not
+have yet.)
+
+Run:  python -m fabind_tpu_torch.cli.serve --preset fabind --port 8400
+
+npz keeps the 1280-d ESM features binary; responses are JSON because poses
+are small. The server is a ThreadingHTTPServer and the engine's dock_*
+methods are thread-safe, so concurrent requests interleave their device
+batches; a semaphore bounds the engine calls in flight (default 4), which
+bounds device memory, and a body-size limit refuses a request before it is
+read.
+"""
+from __future__ import annotations
+
+import io
+import json
+import re
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List
+
+import numpy as np
+
+_PREFIX = re.compile(r"^r(\d+)_(.+)$")
+_PROTEIN_KEYS = ("protein_xyz", "esm_feat", "protein_full_coords")
+
+
+def _group_npz(data: bytes) -> List[Dict[str, np.ndarray]]:
+    """Split "r{i}_{field}" npz entries into per-request dicts; un-prefixed
+    entries are shared by every request."""
+    z = np.load(io.BytesIO(data), allow_pickle=False)
+    shared: Dict[str, np.ndarray] = {}
+    per: Dict[int, Dict[str, np.ndarray]] = {}
+    for k in z.files:
+        m = _PREFIX.match(k)
+        if m:
+            per.setdefault(int(m.group(1)), {})[m.group(2)] = z[k]
+        else:
+            shared[k] = z[k]
+    if not per:
+        return [shared] if shared else []
+    # the indices present, ascending: expanding to max(per) + 1 would let one
+    # tiny entry named r4000000000_x allocate billions of dicts
+    return [dict(shared, **per[i]) for i in sorted(per)]
+
+
+def _finite_list(arr: np.ndarray):
+    """tolist() with non-finite values as null: bare NaN/Infinity tokens
+    are not JSON, and strict parsers reject the whole response."""
+    arr = np.asarray(arr, np.float32)
+    if np.isfinite(arr).all():
+        return arr.tolist()
+    return [[float(x) if np.isfinite(x) else None for x in row]
+            for row in arr.reshape(arr.shape[0], -1)]
+
+
+def _poses_json(poses) -> bytes:
+    out = []
+    for p in poses:
+        conf = float(p.confidence)
+        d = {"coords": _finite_list(p.coords),
+             "confidence": conf if np.isfinite(conf) else None,
+             "error": p.error}
+        if p.pocket_truncated:
+            # the predicted crop outgrew the bucket's Np: the caller may
+            # re-dock with a larger bucket
+            d["pocket_truncated"] = int(p.pocket_truncated)
+        out.append(d)
+    return json.dumps(out).encode()
+
+
+def make_server(engine, host: str = "127.0.0.1", port: int = 8400,
+                max_inflight: int = 4,
+                max_body_bytes: int = 256 * 1024 * 1024
+                ) -> ThreadingHTTPServer:
+    """A ThreadingHTTPServer for `engine` (not started; port 0 picks a free
+    one)."""
+    # the engine is thread-safe; the semaphore only bounds how many requests
+    # hold device batches at once (memory, not safety)
+    inflight = threading.Semaphore(max_inflight)
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *a):   # quiet by default
+            pass
+
+        def _reply(self, code: int, body: bytes):
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _error(self, code: int, msg: str):
+            self._reply(code, json.dumps({"error": msg}).encode())
+
+        def do_GET(self):
+            if self.path != "/health":
+                return self._error(404, "not found")
+            self._reply(200, json.dumps({
+                "status": "ok", "batch_size": engine.batch_size,
+                "bf16": engine.bf16,
+                "buckets": [[c.shapes.max_ligand, c.shapes.max_pocket,
+                             c.shapes.max_protein]
+                            for c in engine.bucket_cfgs]}).encode())
+
+        def do_POST(self):
+            try:
+                n = int(self.headers.get("Content-Length", "0"))
+                if n > max_body_bytes:
+                    # refused before it is read: a runaway client must not
+                    # exhaust the host's memory
+                    return self._error(
+                        413, f"body {n} bytes exceeds limit "
+                             f"{max_body_bytes}")
+                if self.path not in ("/dock_raw", "/screen"):
+                    return self._error(404, "not found")
+                reqs = _group_npz(self.rfile.read(n))
+                if self.path == "/dock_raw":
+                    with inflight:
+                        poses = engine.dock_raw(reqs)
+                else:
+                    if not reqs or "protein_xyz" not in reqs[0]:
+                        return self._error(
+                            400, "screen needs a protein_xyz (+ esm_feat) "
+                                 "entry and r{i}_-prefixed ligand entries")
+                    protein = {k: reqs[0][k] for k in _PROTEIN_KEYS
+                               if k in reqs[0]}
+                    ligs = [{k: v for k, v in r.items()
+                             if k not in _PROTEIN_KEYS} for r in reqs]
+                    with inflight:
+                        poses = engine.dock_screen(protein, ligs)
+                self._reply(200, _poses_json(poses))
+            except Exception as e:   # per-request fault isolation
+                self._error(500, f"{type(e).__name__}: {e}")
+
+    return ThreadingHTTPServer((host, port), Handler)
+
+
+def serve_forever(engine, host: str = "127.0.0.1", port: int = 8400) -> None:
+    srv = make_server(engine, host, port)
+    print(f"fabind_tpu_torch serving on http://{host}:{srv.server_address[1]}"
+          f" (buckets: {len(engine.bucket_cfgs)}, batch {engine.batch_size})",
+          flush=True)
+    try:
+        srv.serve_forever()
+    finally:
+        srv.server_close()

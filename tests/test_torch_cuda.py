@@ -1,19 +1,27 @@
 """The edge-gate CUDA kernel against its plain PyTorch version, on the card:
 its one-direction launch (phi_rank1) and its paired launch over both
-attention directions (phi_rank1_pair).
+attention directions (phi_rank1_pair); and the serving engine on the card
+(bf16 against fp32, bucket routing, the protein-row cache, the launch count
+under threads).
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 """
+import dataclasses
+import threading
+
+import numpy as np
 import pytest
 import torch
 
+from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.ops import edge_gate
 from fabind_tpu_torch.ops.edge_gate import (phi_rank1, phi_rank1_pair,
                                             phi_rank1_pair_reference,
                                             phi_rank1_reference)
+from fabind_tpu_torch.serve import DockingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -148,3 +156,102 @@ def test_pair_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         phi_rank1_pair(l1_a, l1_b, r.transpose(1, 2).contiguous()
                        .transpose(1, 2), u, w2)
+
+
+# ---------------------------------------------------------------- serving
+# toy widths at the released depth (4 docking layers x 8 recycles, 1 pocket
+# layer): 33 gate launches per batch, as on the main path
+ENGINE_KW = dict(max_ligand=16, max_pocket=24, max_protein=48, ctx_k=8,
+                 ctx_k_whole=8, hidden_size=32, pocket_pred_hidden_size=16)
+LAUNCHES_PER_BATCH = 33
+
+
+def _raw(n, nr, seed):
+    """A small request: a compact protein of nr residues, a chain ligand of
+    n atoms beside its first residues."""
+    rng = np.random.RandomState(seed)
+    prot = (rng.randn(nr, 3) * 3).astype(np.float32)
+    lig = (prot[:3].mean(0) + rng.randn(n, 3)).astype(np.float32)
+    bonds = [(i, i + 1) for i in range(n - 1)]
+    bonds += [(j, i) for i, j in bonds]
+    las = np.abs(np.arange(n)[:, None] - np.arange(n)[None]) == 1
+    return dict(protein_xyz=prot,
+                esm_feat=rng.randn(nr, 1280).astype(np.float32),
+                lig_coords=lig, rdkit_coords=lig,
+                lig_feats=rng.randn(n, 56).astype(np.float32),
+                bond_edges=np.asarray(bonds), las_mask=las)
+
+
+def _engine(**kw):
+    cfg = preset("fabind", **ENGINE_KW)
+    small = dataclasses.replace(cfg.shapes, max_ligand=8, max_pocket=16,
+                                max_protein=32)
+    return DockingEngine(cfg, buckets=[small, cfg.shapes], batch_size=2,
+                         seed=0, **kw)
+
+
+def _requests():
+    # two for the small bucket (8:16:32), two for the large, one too large
+    return [_raw(5, 12, 1), _raw(12, 40, 2), _raw(30, 40, 3), _raw(6, 14, 4),
+            _raw(14, 44, 5)]
+
+
+def test_engine_bf16_buckets_against_fp32(cuda):
+    """The bf16 engine on the card: requests routed to both buckets (each
+    batch padded to its bucket), finite float32 poses within the JAX
+    package's bf16-vs-fp32 bound (mean per-atom 0.75 A) of the fp32
+    engine's."""
+    eng16, eng32 = _engine(), _engine(bf16=False)
+    assert eng16.device.type == "cuda" and eng16.dtype == torch.bfloat16
+    raws = _requests()
+    seen = [(cfg_b.shapes.max_pocket, batch.pocket_mask.shape[1],
+             batch.prot_feat.dtype)
+            for _, cfg_b, batch, _ in eng16.batches(raws, [None] * 5)]
+    assert sorted(seen) == [(16, 16, torch.bfloat16), (24, 24, torch.bfloat16)]
+    p16, p32 = eng16.dock_raw(raws), eng32.dock_raw(raws)
+    assert p16[2].error is not None and "exceeds every bucket" in p16[2].error
+    d = []
+    for a, b, raw in zip(p16, p32, raws):
+        assert (a.error is None) == (b.error is None)
+        if a.error is None:
+            assert a.coords.dtype == np.float32
+            assert a.coords.shape == raw["lig_coords"].shape
+            assert np.isfinite(a.coords).all()
+            d.append(np.linalg.norm(a.coords - b.coords, axis=-1))
+    assert np.concatenate(d).mean() < 0.75
+
+
+def test_protein_cache_bit_identical_on_card(cuda):
+    eng = _engine(dev_prot_cache=8)
+    raws = _requests()
+    cold, warm = eng.dock_raw(raws), eng.dock_raw(raws)
+    off = _engine(dev_prot_cache=0).dock_raw(raws)
+    assert len(eng._dev_prot_rows) == 4
+    for c, w, o in zip(cold, warm, off):
+        assert c.error == w.error == o.error
+        np.testing.assert_array_equal(c.coords, w.coords)
+        np.testing.assert_array_equal(c.coords, o.coords)
+
+
+def test_launch_count_under_threads(cuda):
+    """4 threads, one batch each: every launch is counted (4 x 33), and
+    the poses are the serial ones."""
+    eng = _engine()
+    work = [[_raw(5 + i, 14, 10 + i), _raw(6, 12, 20 + i)] for i in range(4)]
+    serial = [eng.dock_raw(w) for w in work]
+    out = [None] * 4
+
+    def call(i):
+        out[i] = eng.dock_raw(work[i])
+
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+    edge_gate.KERNEL.launches = 0
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert edge_gate.KERNEL.launches == 4 * LAUNCHES_PER_BATCH
+    for got, want in zip(out, serial):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.coords, w.coords)

@@ -19,7 +19,9 @@ REPO = Path(__file__).resolve().parents[1]
 def test_port_and_chip_smoke_import_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         fabind_tpu_torch.__path__, "fabind_tpu_torch."))
-    assert "fabind_tpu_torch.ops.edge_gate" in modules
+    for m in ("ops.edge_gate", "utils.precision", "data.buckets", "postopt",
+              "serve_http", "cli.serve"):
+        assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"

@@ -110,7 +110,8 @@ def test_dock_raw_matches_jax(base):
     want = JaxEngine(jcfg, params=params, batch_size=2,
                      bf16=False).dock_raw(raws)
     eng = DockingEngine(cfg, state_dict=state_dict_from_flax(
-        _np_tree(params), is_plus=False), batch_size=2, device="cpu")
+        _np_tree(params), is_plus=False), batch_size=2, bf16=False,
+        device="cpu")
     got = eng.dock_raw(raws)
     assert len(got) == len(want) == len(raws)
     for g, w in zip(got, want):
