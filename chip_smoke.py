@@ -24,11 +24,26 @@ Phases, each of which raises on failure (non-zero exit):
   4. times (CUDA events after warm-up): each kernel and its plain version
      beside its bound and its special-function-unit floor, the gate's device
      time per batch, and for the bf16 and the fp32 engine: warmup seconds,
-     batch latency per bucket, dock_raw complexes/s and peak device memory.
+     batch latency per bucket, dock_raw complexes/s and peak device memory;
+  5. FABind+ (preset `fabind_plus`, released width: 5 layers, LayerNorm edge
+     MLPs) served as base is, bf16 over the same buckets and requests: one
+     finite pose per request and no edge-gate launch (the LayerNorm coord
+     MLP never reaches the gate); its times, peak memory and warmup, and
+     the distance to an fp32 FABind+ engine's poses, with and without the
+     fp32 pocket center given to the bf16 engine (printed, not gated);
+  6. best-of-N sampling (preset `fabind_plus_sampling`, bf16, stochastic
+     pocket mode): `dock_best_of` of 16 requests at 8 passes returns each
+     request's most confident pose, the same seed the same poses bit for
+     bit and another seed other ones; without dropout, recycle draws and
+     clustering every pass of a batch is the same pose; the post-optimized
+     winner is float32 and finite, its configuration loss no higher than
+     the unrefined winner's. Times: best-of-8
+     complexes/s (and in the fixed pocket mode), ms per pass of the pocket
+     and docking halves, host DBSCAN ms per pass, one best-of-40 batch.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
-beside PATH, the bucket in its name.
+beside PATH, the bucket in its name, for base and for FABind+.
 """
 from __future__ import annotations
 
@@ -50,11 +65,14 @@ from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.data.batching import build_sample
 from fabind_tpu_torch.data.buckets import resolve_buckets, route_sample
 from fabind_tpu_torch.models import layers
+from fabind_tpu_torch.models.layers import dropout_rng
 from fabind_tpu_torch.ops import edge_gate
 from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
 from fabind_tpu_torch.ops.geometry import pairwise_dist
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
 from fabind_tpu_torch.postopt import configuration_loss
+from fabind_tpu_torch.sample import (dbscan_clusters, pass_generator,
+                                     sample_poses)
 from fabind_tpu_torch.serve import DockingEngine
 from fabind_tpu_torch.serve_http import make_server
 
@@ -111,6 +129,12 @@ BF16_POSE_MEAN_TOL_A = 0.05
 BF16_VS_FP32_MEAN_TOL_A = 0.75
 # aten ops that run the model's matrix products (profile summary)
 MATMUL_OPS = ("aten::addmm", "aten::mm", "aten::bmm", "aten::baddbmm")
+# best-of-N: passes and requests of the checked sampling path, the seed, and
+# the passes of the one timed large batch
+N_BEST_OF = 16
+SAMPLES = 8
+SAMPLE_SEED = 3
+SAMPLES_LARGE = 40
 
 
 def check(ok: bool, what: str) -> None:
@@ -408,9 +432,11 @@ def run_plain_gate(engine, batch, cfg_b):
         layers.phi_rank1_pair = orig
 
 
-def serve_main_path(engine, raws, what):
+def serve_main_path(engine, raws, what, per_batch=None):
     """dock_raw of every request with the counts set to 0 just before and
-    read just after: (poses, BucketLaunches, total launches, seconds)."""
+    read just after: (poses, BucketLaunches, total launches, seconds).
+    `per_batch` is the gate launches a batch must make (default: the base
+    model's, one per attention layer of each stage and recycle)."""
     counter = BucketLaunches(engine)
     edge_gate.KERNEL.launches = 0
     t0 = time.perf_counter()
@@ -423,7 +449,8 @@ def serve_main_path(engine, raws, what):
     check_poses(poses, raws, what)
     check(sum(counter.launches.values()) == launches,
           f"{what}: launches outside the batches")
-    per_batch = sum(s[-1] for s in served_pair_shapes(engine.cfg))
+    if per_batch is None:
+        per_batch = sum(s[-1] for s in served_pair_shapes(engine.cfg))
     for label, n in counter.launches.items():
         check(n == per_batch * counter.batches[label],
               f"{what}: bucket {label} launched the gate {n} times in "
@@ -506,12 +533,12 @@ def pocket_center(engine, batch, cfg_b):
     sigmoid center of the pocket stage's logits."""
     m = engine.cfg.model
     with torch.inference_mode():
-        _, _, cls = engine.model._pocket_pred(batch, cfg_b.shapes)
+        _, _, cls, _ = engine.model._pocket_pred(batch, cfg_b.shapes)
         return pocket_center_rounded(cls, batch.prot_xyz, batch.prot_mask,
                                      m.gs_tau, m.gs_hard)
 
 
-def explain_bf16_gap(engine16, engine32, b16, b32, cfg_b, label):
+def explain_bf16_gap(engine16, engine32, b16, b32, cfg_b, label, what=""):
     """Where the bf16-vs-fp32 pose difference comes from, on one batch:
     the distance between the two engines' pocket centers, and the per-atom
     pose distance with each engine's own center and with the bf16 engine
@@ -526,32 +553,247 @@ def explain_bf16_gap(engine16, engine32, b16, b32, cfg_b, label):
             shapes=cfg_b.shapes)[0]
     dc = (c16.float() - c32).norm(dim=-1)[b32.sample_valid].cpu().numpy()
     own, held = (batch_dist(x, x32, b32) for x in (x16, x16c))
-    print(f"bf16 vs fp32 batch bucket {label}: pocket centers apart mean "
-          f"{dc.mean():.3f} A, max {dc.max():.3f} A; per-atom pose distance "
-          f"mean {own.mean():.3f} A with the bf16 center, {held.mean():.3f} A "
-          f"with the fp32 center")
+    print(f"{what}bf16 vs fp32 batch bucket {label}: pocket centers apart "
+          f"mean {dc.mean():.3f} A, max {dc.max():.3f} A; per-atom pose "
+          f"distance mean {own.mean():.3f} A with the bf16 center, "
+          f"{held.mean():.3f} A with the fp32 center")
 
 
-def check_postopt(engine, cfg_b, batch):
-    """post_optim_steps on one batch: finite poses, and the configuration
-    loss (fp32, over the real samples) not higher than without it."""
-    coords0 = engine.run_batch(batch, cfg_b)[0]
+def check_postopt(engine, batch, run, what="post-optimization"):
+    """post_optim_steps on one batch, whose poses `run()` gives: finite
+    poses, and the configuration loss (fp32, over the real samples) not
+    higher than without it. Returns the post-optimized poses."""
+    coords0 = run()
     engine.post_optim_steps = POSTOPT_STEPS
     try:
-        coords1 = engine.run_batch(batch, cfg_b)[0]
+        coords1 = run()
     finally:
         engine.post_optim_steps = 0
-    check(bool(torch.isfinite(coords1).all()), "post-optimized poses finite")
+    check(bool(torch.isfinite(coords1).all()), f"{what}: poses finite")
     ref = batch.lig_rdkit_coords.float()
     valid = batch.sample_valid
     loss0, loss1 = (configuration_loss(c.float(), pairwise_dist(ref, ref),
                                        batch.las_adj, batch.lig_mask)[valid]
                     .sum().item() for c in (coords0, coords1))
-    print(f"post-optimization ({POSTOPT_STEPS} Adam steps, "
+    print(f"{what} ({POSTOPT_STEPS} Adam steps, "
           f"{str(coords1.dtype)[6:]}): configuration loss {loss0:.2f} -> "
           f"{loss1:.2f}")
-    check(loss1 <= loss0, f"post-optimization raised the loss {loss0} -> "
-          f"{loss1}")
+    check(loss1 <= loss0, f"{what} raised the loss {loss0} -> {loss1}")
+    return coords1
+
+
+def route(engine, raws):
+    """{bucket label: the requests that route there} for `engine`."""
+    out = {bucket_label(c.shapes): [] for c in engine.bucket_cfgs}
+    for raw in raws:
+        c = route_sample(build_sample(raw, engine.cfg, group="test"),
+                         engine.bucket_cfgs)
+        out[bucket_label(c.shapes)].append(raw)
+    return out
+
+
+def profile_engine(syncs, lat, profile, what, card_line):
+    """profile_batch for each bucket's batch, the bucket and `what` in the
+    table's file name."""
+    for label, sync in syncs.items():
+        out = Path(profile)
+        out = out.with_name(f"{out.stem}{what}_{label.replace(':', '-')}"
+                            f"{out.suffix}")
+        profile_batch(sync, str(out), lat[label],
+                      f"{what.strip('_')} bucket {label}".strip(), card_line)
+
+
+def plus_phase(raws, buckets, card_line, profile):
+    """FABind+ served as deployed (bf16, the base phase's buckets and
+    requests), no edge-gate launch on its path, its times; then an fp32
+    FABind+ engine on the same requests."""
+    cfg = preset("fabind_plus", **SMOKE_SHAPES)
+    engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    warm = engine.warmup()
+    print(f"time fabind_plus bf16 warmup ({len(buckets)} buckets): "
+          f"{warm:.3f} s [{card_line}]")
+    by_bucket = route(engine, raws)
+    print("fabind_plus requests per bucket:",
+          {k: len(v) for k, v in by_bucket.items()})
+    # the counts go to 0 just before the FABind+ path and are read just
+    # after: its LayerNorm coord MLP must never reach the edge gate
+    poses, counter, launches, _ = serve_main_path(engine, raws,
+                                                  "fabind_plus bf16",
+                                                  per_batch=0)
+    check(launches == 0, f"fabind_plus launched the edge gate {launches} "
+                         f"times")
+    check(all(counter.batches.get(k, 0) > 0 for k in by_bucket),
+          f"fabind_plus served every bucket: {counter.batches}")
+    print("fabind_plus pocket_truncated per request:",
+          [p.pocket_truncated for p in poses])
+    print("fabind_plus confidence per request (no confidence head):",
+          sorted({p.confidence for p in poses}))
+    batches = first_batches(engine, {k: v for k, v in by_bucket.items()
+                                     if v})
+    torch.cuda.reset_peak_memory_stats()
+    lat, syncs = time_engine(engine, batches, raws, "fabind_plus bf16",
+                             card_line)
+    print(f"peak device memory fabind_plus bf16 engine (timed batches and "
+          f"dock_raw): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+          f"[{card_line}]")
+    if profile:
+        profile_engine(syncs, lat, profile, "_plus", card_line)
+    del syncs
+
+    engine32 = DockingEngine(cfg, buckets=buckets, batch_size=BATCH,
+                             bf16=False, seed=0)
+    poses32 = engine32.dock_raw(raws)
+    check_poses(poses32, raws, "fabind_plus fp32")
+    d = pose_dist(poses, poses32)
+    print(f"fabind_plus bf16 vs fp32 engine, {len(d)} atoms: per-atom "
+          f"distance mean {d.mean():.3f} A, max {d.max():.3f} A (not gated)")
+    batches32 = first_batches(engine32, {label: by_bucket[label]
+                                         for label, _, _ in batches})
+    for (label, cfg_b, b16), (_, _, b32) in zip(batches, batches32):
+        explain_bf16_gap(engine, engine32, b16, b32, cfg_b, label,
+                         "fabind_plus ")
+
+
+def time_best_of(engine, raws, samples, what, card_line, calls=1):
+    """dock_best_of of `raws` at `samples` passes, `calls` times; returns
+    the poses of the first call."""
+    secs, first = [], None
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        poses = engine.dock_best_of(raws, sample_size=samples,
+                                    seed=SAMPLE_SEED)
+        secs.append(time.perf_counter() - t0)
+        first = first or poses
+    sec = statistics.median(secs)
+    print(f"time {what} best-of-{samples} dock_best_of {len(raws)} requests "
+          f"(featurize + collate + sampling + unpack): median {sec:.3f} s of "
+          f"{[round(x, 3) for x in secs]}, {len(raws) / sec:.2f} complexes/s "
+          f"[{card_line}]")
+    return first
+
+
+def time_sampling_pass(engine, batch, cfg_b, card_line):
+    """Host-clock ms of the pocket half and the docking half of SAMPLES
+    stochastic passes over one batch (each ends in synchronize), and of the
+    host DBSCAN over each pass's pocket logits."""
+    m, shapes = engine.cfg.model, cfg_b.shapes
+    xyz = batch.prot_xyz.float().cpu().numpy()
+    mask = batch.prot_mask.cpu().numpy()
+    pocket_ms, dock_ms, dbscan_ms, n_clusters = [], [], [], []
+    for s in range(SAMPLES):
+        g = pass_generator(SAMPLE_SEED, 0, s, "cuda")
+        with torch.inference_mode():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with dropout_rng(g):
+                pocket = engine.model._pocket_pred(batch, shapes)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            probs = 1.0 / (1.0 + np.exp(-pocket[2].float().cpu().numpy()))
+            t2 = time.perf_counter()
+            clusters = dbscan_clusters(probs, xyz, mask, m.dbscan_eps,
+                                       m.dbscan_min_samples)
+            t3 = time.perf_counter()
+            torch.cuda.synchronize()
+            t4 = time.perf_counter()
+            with dropout_rng(g):
+                engine.model.inference_diag(batch, shapes=shapes,
+                                            pocket=pocket)
+            torch.cuda.synchronize()
+            t5 = time.perf_counter()
+        pocket_ms.append((t1 - t0) * 1e3)
+        dbscan_ms.append((t3 - t2) * 1e3)
+        dock_ms.append((t5 - t4) * 1e3)
+        n_clusters.append(sum(len(c) for c in clusters))
+    print(f"time best-of-N pass, batch of {BATCH} bucket "
+          f"{bucket_label(shapes)} ({SAMPLES} passes): pocket half median "
+          f"{statistics.median(pocket_ms):.2f} ms, docking half median "
+          f"{statistics.median(dock_ms):.2f} ms (of "
+          f"{[round(x, 1) for x in dock_ms]}: recycle counts are drawn per "
+          f"pass), host DBSCAN median {statistics.median(dbscan_ms):.2f} ms "
+          f"(clusters per batch {n_clusters}) [{card_line}]")
+
+
+def best_of_phase(raws, buckets, card_line):
+    """Best-of-N sampling as deployed (bf16, stochastic pocket mode, DBSCAN
+    centers): checks, then times."""
+    cfg = preset("fabind_plus_sampling", **SMOKE_SHAPES)
+    engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    engine.warmup()
+    rs = raws[:N_BEST_OF]
+    edge_gate.KERNEL.launches = 0
+    poses = time_best_of(engine, rs, SAMPLES, "bf16 stochastic", card_line)
+    check(edge_gate.KERNEL.launches == 0,
+          f"best-of-N launched the edge gate {edge_gate.KERNEL.launches} "
+          f"times")
+    check_poses(poses, rs, "best-of-N")
+    # each request's confidence is the largest of its passes' scores
+    n_checked = 0
+    for bi, (chunk, cfg_b, batch, n_real) in enumerate(
+            engine.batches(rs, [None] * len(rs))):
+        _, scores = sample_poses(engine.model, batch, cfg_b, SAMPLES,
+                                 seed=SAMPLE_SEED, batch_idx=bi)
+        best = scores.float().max(0).values.cpu()
+        for b in range(n_real):
+            pos, _ = chunk[b]
+            check(poses[pos].confidence == float(best[b]),
+                  f"best-of-N confidence {poses[pos].confidence} is not the "
+                  f"largest of its {SAMPLES} scores {float(best[b])}")
+            n_checked += 1
+    check(n_checked == len(rs), "best-of-N: every request checked")
+    again = time_best_of(engine, rs, SAMPLES, "bf16 stochastic", card_line,
+                         calls=2)
+    d = pose_dist(again, poses)
+    check(d.max() == 0.0, f"best-of-N same seed: max distance {d.max()}")
+    other = engine.dock_best_of(rs, sample_size=SAMPLES,
+                                seed=SAMPLE_SEED + 1)
+    d_other = pose_dist(other, poses)
+    check(d_other.max() > 0.0, "best-of-N another seed: other poses")
+    print(f"best-of-{SAMPLES}, {len(rs)} requests: confidence = max of the "
+          f"passes' scores for all {n_checked}; same seed bit-identical; "
+          f"another seed per-atom distance mean {d_other.mean():.3f} A")
+    # one full batch of the large bucket for the per-pass split and the
+    # best-of-40 batch
+    large = route(engine, raws)[bucket_label(buckets[-1])][:BATCH]
+    check(len(large) == BATCH, "a full batch for best-of-40")
+    (_, cfg_b, batch), = first_batches(engine, {"large": large})
+    time_sampling_pass(engine, batch, cfg_b, card_line)
+    # the winner is refined in float32 whatever the model's dtype
+    win = check_postopt(engine, batch, lambda: engine._best_of_batch(
+        batch, cfg_b, SAMPLES, SAMPLE_SEED, 0)[0],
+        f"best-of-{SAMPLES} winner post-optimization")
+    check(win.dtype == torch.float32,
+          f"best-of-N winner post-optimized in {win.dtype}")
+    time_best_of(engine, large, SAMPLES_LARGE, "bf16 stochastic", card_line)
+    del engine
+    torch.cuda.empty_cache()
+
+    fixed = DockingEngine(preset("fabind_plus_sampling",
+                                 sampling_pocket_mode="fixed",
+                                 **SMOKE_SHAPES),
+                          buckets=buckets, batch_size=BATCH, seed=0)
+    fixed.warmup()
+    poses_fixed = time_best_of(fixed, rs, SAMPLES, "bf16 fixed", card_line,
+                               calls=2)
+    check_poses(poses_fixed, rs, "best-of-N fixed pocket mode")
+    del fixed
+
+    # deterministic passes: no dropout, the full recycle count, no DBSCAN
+    det = DockingEngine(preset("fabind_plus_sampling", dropout=0.0,
+                               random_n_iter=False, use_clustering=False,
+                               **SMOKE_SHAPES),
+                        buckets=buckets, batch_size=BATCH, seed=0)
+    (_, cfg_b, batch), = first_batches(det, {"large": large})
+    coords, scores = sample_poses(det.model, batch, cfg_b, SAMPLES,
+                                  seed=SAMPLE_SEED)
+    check(torch.equal(coords, coords[:1].expand_as(coords))
+          and torch.equal(scores, scores[:1].expand_as(scores)),
+          "best-of-N without dropout, recycle draws and clustering: every "
+          "pass the same pose")
+    print(f"best-of-{SAMPLES} without dropout, recycle draws and "
+          f"clustering: all passes of a batch equal bit for bit")
+    del det
+    torch.cuda.empty_cache()
 
 
 def time_kernel_rows(served, max_err, launches, sms, clock_hz, card_line):
@@ -642,11 +884,7 @@ def main(argv=None) -> int:
     warm = {"bf16": engine.warmup()}
     print(f"time bf16 warmup ({len(buckets)} buckets): {warm['bf16']:.3f} s "
           f"[{card_line}]")
-    by_bucket = {bucket_label(s): [] for s in buckets}
-    for raw in raws:
-        c = route_sample(build_sample(raw, cfg, group="test"),
-                         engine.bucket_cfgs)
-        by_bucket[bucket_label(c.shapes)].append(raw)
+    by_bucket = route(engine, raws)
     print("requests per bucket:", {k: len(v) for k, v in by_bucket.items()})
     for label, rs in by_bucket.items():
         check(len(rs) >= MIN_PER_BUCKET,
@@ -685,7 +923,8 @@ def main(argv=None) -> int:
           f"rows): max per-atom distance to the first call {d.max():.3e} A")
     check(d.max() == 0.0, "protein cache bit-identical")
 
-    check_postopt(engine, batches[-1][1], batches[-1][2])
+    _, cfg_b, batch = batches[-1]
+    check_postopt(engine, batch, lambda: engine.run_batch(batch, cfg_b)[0])
     http_round_trip(engine, raws[:BATCH])
 
     # ---- 4a. times, bf16 engine
@@ -695,12 +934,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
           f"[{card_line}]")
     if args.profile:
-        for label in syncs:
-            out = Path(args.profile)
-            out = out.with_name(f"{out.stem}_{label.replace(':', '-')}"
-                                f"{out.suffix}")
-            profile_batch(syncs[label], str(out), lat16[label],
-                          f"bucket {label}", card_line)
+        profile_engine(syncs, lat16, args.profile, "", card_line)
     del syncs
 
     # ---- 3b. the same requests through an fp32 engine
@@ -735,6 +969,11 @@ def main(argv=None) -> int:
           f"[{card_line}]")
     del engine, batches
     torch.cuda.empty_cache()
+
+    # ---- 5. FABind+ and 6. best-of-N sampling
+    plus_phase(raws, buckets, card_line, args.profile)
+    torch.cuda.empty_cache()
+    best_of_phase(raws, buckets, card_line)
 
     # ---- 4b. kernel times
     rows = time_kernel_rows(served, max_err, main_launches, sms, clock_hz,

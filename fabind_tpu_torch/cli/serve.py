@@ -2,7 +2,8 @@
 HTTP server (fabind_tpu_torch.serve_http), on the GPU by default.
 
 Usage:
-  python -m fabind_tpu_torch.cli.serve --preset fabind --ckpt best_model.bin \
+  python -m fabind_tpu_torch.cli.serve \
+      --preset fabind|fabind_plus|fabind_plus_sampling --ckpt best_model.bin \
       [--host 127.0.0.1] [--port 8400] [--batch-size 8] [--no-bf16] \
       [--post-optim-steps N] [--buckets l:p:r,l:p:r] [--warmup] \
       [--set KEY=VALUE ...] [--device cuda|cpu]
@@ -38,11 +39,10 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if args.preset != "fabind":
+    if args.preset == "fabflex":
         raise NotImplementedError(
-            f"preset {args.preset!r}: the port serves FABind base only; the "
-            f"FABind+ and flexible forwards are ROADMAP queue 1 items 9 and "
-            f"15")
+            "preset 'fabflex': the flexible-docking forward is not ported "
+            "yet (ROADMAP queue 1 item 15)")
     if args.buckets and args.buckets.startswith("auto"):
         raise SystemExit(
             "--buckets auto needs the dataset reader (data/dataset.py), "

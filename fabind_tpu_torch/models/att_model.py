@@ -2,8 +2,11 @@
 
 Counterpart of fabind_tpu/models/att_model.py: `n_iter` recycles, the first
 n_iter - 1 without gradient and the last with it; only the movable nodes
-(glb_c, ligand, glb_p) carry coordinate updates across rounds. The explicit
-pair embedding is built once per forward from the entry node embeddings.
+(glb_c, ligand, glb_p) carry coordinate updates across rounds. A stochastic
+forward (inside `layers.dropout_rng`) with cfg.random_n_iter runs a count
+drawn uniformly from 1..n_iter, as the JAX package's non-deterministic
+forward does. The explicit pair embedding is built once per forward from the
+entry node embeddings.
 """
 from __future__ import annotations
 
@@ -14,7 +17,7 @@ from torch import nn
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.models.egnn import GraphInputs, MCAttEGNN
-from fabind_tpu_torch.models.layers import InteractionModule
+from fabind_tpu_torch.models.layers import InteractionModule, active_host_rng
 
 Tensor = torch.Tensor
 
@@ -56,6 +59,10 @@ class EfficientMCAttModel(nn.Module):
             raise NotImplementedError(
                 "random recycle counts (training) are ported with the "
                 "training slice")
+        host_rng = active_host_rng()
+        if n_iter is None and self.cfg.random_n_iter and host_rng is not None:
+            n_iter = int(torch.randint(1, self.n_iter + 1, (),
+                                       generator=host_rng))
         n_iter = self.n_iter if n_iter is None else n_iter
         ctx_k = self.ctx_k if ctx_k is None else ctx_k
         layout = gi.layout

@@ -48,6 +48,11 @@ class GraphInputs(NamedTuple):
         return (torch.cat([ones, self.pkt_mask], dim=1),
                 torch.cat([ones, self.lig_mask], dim=1))
 
+    def node_mask(self) -> Tensor:
+        """Per-sample validity [B, N] of the complex's nodes."""
+        ones = torch.ones_like(self.lig_mask[:, :1])
+        return torch.cat([ones, self.lig_mask, ones, self.pkt_mask], dim=1)
+
 
 def _masked_softmax(logits: Tensor, mask: Tensor, dim: int) -> Tensor:
     out = torch.softmax(torch.where(mask, logits, -BIG), dim=dim)
@@ -89,7 +94,10 @@ def _egcl_mlps(cfg: ModelConfig, hidden: int, edge_in: int):
 
 class EGCL(nn.Module):
     """Multi-channel E(n) conv layer on the ctx graph (decomposed edge MLP;
-    n_channel = 1, so radial is the squared distance)."""
+    n_channel = 1, so radial is the squared distance). The FABind+ edge MLP
+    with a LayerNorm over its input is decomposed halfway
+    (MLPBlock.ln_l1_parts): the dst block and the LayerNorm fold into
+    per-node pieces, the src block stays a per-edge product."""
 
     def __init__(self, cfg: ModelConfig, hidden: int, coord_max: float):
         super().__init__()
@@ -102,23 +110,25 @@ class EGCL(nn.Module):
     def forward(self, h: Tensor, x: Tensor, ctx: G.CtxGraph,
                 gi: GraphInputs):
         cfg = self.cfg
-        if cfg.is_plus and cfg.use_ln_mlp:
-            raise NotImplementedError(
-                "the LayerNorm edge MLP (FABind+) is ported with the FABind+ "
-                "slice")
         layout = gi.layout
         C = h.shape[-1]
+        ln_edges = cfg.is_plus and cfg.use_ln_mlp
 
-        # edge_mlp's first linear over [h_dst ++ h_src ++ radial] split into
-        # per-node projections + the radial column
-        w1 = self.edge_mlp.lin1.weight                       # [H, 2C+1]
-        a = F.linear(h, w1[:, :C], self.edge_mlp.lin1.bias)  # dst part + bias
-        s_proj = F.linear(h, w1[:, C:2 * C])                 # src part
-        w_r = w1[:, 2 * C]
-        # coords packed with the source projection: one gather per edge group
-        packed = torch.cat([x, s_proj], dim=-1)              # [B, N, 3+H]
+        if ln_edges:
+            parts = self.edge_mlp.ln_l1_parts(h)
+            # coords packed with the features: one gather per edge group
+            packed = torch.cat([x, h], dim=-1)                # [B, N, 3+C]
+        else:
+            # edge_mlp's first linear over [h_dst ++ h_src ++ radial] split
+            # into per-node projections + the radial column
+            w1 = self.edge_mlp.lin1.weight                    # [H, 2C+1]
+            a = F.linear(h, w1[:, :C], self.edge_mlp.lin1.bias)
+            s_proj = F.linear(h, w1[:, C:2 * C])              # src part
+            w_r = w1[:, 2 * C]
+            # coords packed with the source projection
+            packed = torch.cat([x, s_proj], dim=-1)           # [B, N, 3+H]
 
-        g_n = G.gather_nodes(packed, ctx.nbr_idx)            # [B, N, K, 3+H]
+        g_n = G.gather_nodes(packed, ctx.nbr_idx)            # [B, N, K, 3+*]
         diff_n = x[:, :, None, :] - g_n[..., :3]
         r_n = (diff_n * diff_n).sum(-1)
         m_n = ctx.nbr_mask
@@ -139,17 +149,23 @@ class EGCL(nn.Module):
                 + torch.where(m_p, r_p * r_p, 0.0).sum(1))
         div = _norm_div(r_sq, cfg)
 
-        def messages(s_src, radial, div_b, a_dst):
+        def messages(src, radial, div_b, dst):
+            """Edge messages from the gathered source rows and the
+            destination node(s) `dst` (an index or a broadcast slice)."""
+            if ln_edges:
+                return self.edge_mlp.finish(self.edge_mlp.ln_l1_edges(
+                    parts, parts.a[dst][..., None, :], parts.t[dst][..., None],
+                    parts.q[dst][..., None], src, radial / div_b))
             m = self.edge_mlp.finish(
-                a_dst + s_src + (radial / div_b)[..., None] * w_r)
+                a[dst][..., None, :] + src + (radial / div_b)[..., None] * w_r)
             return m if cfg.is_plus else self.dropout(m)
 
         msg_n = messages(g_n[..., 3:], r_n, div[:, None, None],
-                         a[:, :, None, :])
+                         (slice(None), slice(None)))
         msg_c = messages(g_c[..., 3:], r_c, div[:, None],
-                         a[:, layout.glb_c][:, None, :])
+                         (slice(None), layout.glb_c))
         msg_p = messages(g_p[..., 3:], r_p, div[:, None],
-                         a[:, layout.glb_p][:, None, :])
+                         (slice(None), layout.glb_p))
 
         # coord update: segment mean of diff * coord_mlp(m)
         def coord_agg(msg, diff, mask):

@@ -1,17 +1,19 @@
-"""FABind top-level model (two stages: pocket prediction, then docking).
+"""FABind and FABind+ top-level models (two stages: pocket prediction, then
+docking).
 
-Counterpart of fabind_tpu/models/fabind.py for FABind base inference: pocket
-prediction over the whole protein, the rounded pocket center, the radius
-crop packed into the Np pocket slots, and docking through the complex model.
-The base model works in the protein-mean frame end to end. Module names are
+Counterpart of fabind_tpu/models/fabind.py for inference: pocket prediction
+over the whole protein, the rounded pocket center, the radius crop packed
+into the Np pocket slots, and docking through the complex model. The base
+model works in the protein-mean frame end to end; FABind+ crops at its
+predicted radius, docks in the pocket's frame and adds the pocket center
+back, so both return coordinates in the protein-mean frame. Module names are
 the torch reference's, so released state dicts load with strict=True. The
-FABind+ modules are built (their weights load), but the FABind+ forward and
-the training forward are ported in later slices.
+training forward is ported in a later slice.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,11 +25,14 @@ from fabind_tpu_torch.models.att_model import EfficientMCAttModel
 from fabind_tpu_torch.models.egnn import GraphInputs
 from fabind_tpu_torch.models.layers import MLPBlock, TransitionDiffOutDim
 from fabind_tpu_torch.ops import graph as G
-from fabind_tpu_torch.ops.geometry import pairwise_dist
+from fabind_tpu_torch.ops.geometry import las_projection_step, pairwise_dist
 from fabind_tpu_torch.ops.gumbel import (pocket_center_from_cls,
                                          pocket_center_rounded)
 
 Tensor = torch.Tensor
+# (compound_out [B,Nc,C], protein_out [B,Nr,C], cls_logits [B,Nr],
+#  radius_pred [B]): the pocket stage's outputs
+PocketOut = Tuple[Tensor, Tensor, Tensor, Tensor]
 
 
 @dataclass
@@ -44,6 +49,8 @@ class FABindOutput:
     ctx_overflow: Tensor       # [B] radius edges dropped by the ctx table
     pkt_idx: Tensor            # [B, Np]
     pkt_mask: Tensor           # [B, Np]
+    pocket_radius_pred: Tensor  # [B] FABind+ radius head (zeros for base)
+    confidence: Tensor         # [B] FABind+ confidence head (zeros otherwise)
 
 
 class FABind(nn.Module):
@@ -116,9 +123,11 @@ class FABind(nn.Module):
             las_ref=self.cfg.normalize(batch.lig_rdkit_coords))
 
     # ---------------------------------------------------------- pocket stage
-    def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig):
+    def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig
+                     ) -> PocketOut:
         """Whole-protein pocket prediction: (compound_out [B,Nc,C],
-        protein_out [B,Nr,C], cls_logits [B,Nr])."""
+        protein_out [B,Nr,C], cls_logits [B,Nr], radius_pred [B]; zeros for
+        base)."""
         cfg = self.cfg
         lig_emb = self.compound_linear_whole_protein(batch.lig_feat)
         prot_emb = self.protein_linear_whole_protein(batch.prot_feat)
@@ -139,16 +148,44 @@ class FABind(nn.Module):
         protein_out = h_out[:, layout.pkt_slice]
         cls_logits = self.protein_to_pocket(protein_out)[..., 0]
         cls_logits = cls_logits * batch.prot_mask.to(h_out.dtype)
-        return compound_out, protein_out, cls_logits
+
+        radius_pred = torch.zeros(batch.batch_size, dtype=h_out.dtype,
+                                  device=h_out.device)
+        if cfg.is_plus:
+            # the radius head over pooled embeddings
+            if cfg.use_for_radius_pred == "ligand":
+                pooled = (compound_out * batch.lig_mask[..., None]).sum(1)
+            elif cfg.use_for_radius_pred == "both":
+                pooled = (h_out * gi.node_mask()[..., None]).sum(1)
+            else:   # global
+                pooled = h_out[:, layout.glb_c]
+            radius_pred = F.relu(self.pocket_radius_head(pooled))[..., 0]
+        return compound_out, protein_out, cls_logits, radius_pred
 
     # ------------------------------------------------------------------ crop
+    def _crop_radius(self, radius_pred: Tensor) -> Optional[Tensor]:
+        """FABind+'s per-sample crop radius [B]: the predicted radius scaled
+        (buffer <= 2) or padded by pocket_radius_buffer, at least
+        min_pocket_radius. None for base and force_fix_radius: the fixed
+        cfg.pocket_radius."""
+        cfg = self.cfg
+        if not cfg.is_plus or cfg.force_fix_radius:
+            return None
+        if cfg.pocket_radius_buffer <= 2.0:
+            r = radius_pred * cfg.pocket_radius_buffer
+        else:
+            r = radius_pred + cfg.pocket_radius_buffer
+        return r.clamp(min=cfg.min_pocket_radius)
+
     def _predicted_crop(self, center: Tensor, batch: FABindBatch,
-                        shapes: ShapeConfig):
-        """Residues within the pocket radius of the predicted center (plus
-        the first 100 residues when fewer than 5 are kept), packed into the
-        Np pocket slots: (idx, mask, less5, overflow)."""
+                        shapes: ShapeConfig, radius: Optional[Tensor] = None):
+        """Residues within `radius` [B] (None: cfg.pocket_radius) of the
+        predicted center (plus the first 100 residues when fewer than 5 are
+        kept), packed into the Np pocket slots: (idx, mask, less5,
+        overflow)."""
         d = torch.linalg.norm(batch.prot_xyz - center[:, None, :], dim=-1)
-        keep = (d < self.cfg.pocket_radius) & batch.prot_mask
+        r = self.cfg.pocket_radius if radius is None else radius[:, None]
+        keep = (d < r) & batch.prot_mask
         Nr = batch.prot_mask.shape[1]
         first100 = torch.arange(Nr, device=keep.device)[None, :] < 100
         fallback = (first100 | keep) & batch.prot_mask
@@ -163,8 +200,8 @@ class FABind(nn.Module):
         stage 2 into the predicted one."""
         self._check_supported()
         shapes = self.shapes
-        compound_out, protein_out, cls_logits = self._pocket_pred(batch,
-                                                                  shapes)
+        compound_out, protein_out, cls_logits, radius_pred = \
+            self._pocket_pred(batch, shapes)
         cfg = self.cfg
         pred_center = pocket_center_from_cls(
             cls_logits, batch.prot_xyz, batch.prot_mask, cfg.gs_tau,
@@ -172,7 +209,8 @@ class FABind(nn.Module):
         B = batch.batch_size
         if stage == 2:
             pkt_idx, pkt_mask, keep_less_5, overflow = self._predicted_crop(
-                pred_center.detach(), batch, shapes)
+                pred_center.detach(), batch, shapes,
+                self._crop_radius(radius_pred))
         else:
             pkt_idx, pkt_mask = batch.pocket_idx, batch.pocket_mask
             keep_less_5 = torch.zeros(B, dtype=torch.bool,
@@ -180,18 +218,17 @@ class FABind(nn.Module):
             overflow = torch.zeros(B, dtype=torch.long, device=pkt_idx.device)
         out = self._dock(batch, compound_out, protein_out, pkt_idx, pkt_mask,
                          stage == 2, shapes.ctx_k)
-        coords, y_pred, y_by_coord, dis_map, pair_valid, ctx_overflow = out
+        (coords, y_pred, y_by_coord, dis_map, pair_valid, confidence,
+         ctx_overflow) = out
         return FABindOutput(
             coords=coords, y_pred=y_pred, y_pred_by_coord=y_by_coord,
             dis_map_target=dis_map, pair_valid=pair_valid,
             pocket_cls_logits=cls_logits, pred_pocket_center=pred_center,
             keep_less_5=keep_less_5, pocket_overflow=overflow,
-            ctx_overflow=ctx_overflow, pkt_idx=pkt_idx, pkt_mask=pkt_mask)
+            ctx_overflow=ctx_overflow, pkt_idx=pkt_idx, pkt_mask=pkt_mask,
+            pocket_radius_pred=radius_pred, confidence=confidence)
 
     def _check_supported(self):
-        if self.cfg.is_plus:
-            raise NotImplementedError(
-                "the FABind+ forward is ported with the FABind+ slice")
         if self.training:
             raise NotImplementedError(
                 "the training forward is ported with the training slice")
@@ -201,14 +238,28 @@ class FABind(nn.Module):
               protein_out: Tensor, pkt_idx: Tensor, pkt_mask: Tensor,
               use_stage2: bool, ctx_k: int):
         """Build the docking complex from a pocket selection and run the
-        complex model and the heads."""
+        complex model and the heads: (coords, y_pred, y_pred_by_coord,
+        dis_map_target, pair_valid, confidence, ctx_overflow)."""
         cfg = self.cfg
         pocket_emb = G.gather_nodes(protein_out, pkt_idx)        # [B, Np, C]
         pkt_xyz = G.gather_nodes(batch.prot_xyz, pkt_idx) * pkt_mask[..., None]
 
         # ligand init: stage 1 = host-built init; stage 2 = init re-centered
         # on the predicted pocket's mean
-        if use_stage2:
+        if cfg.is_plus:
+            # FABind+ docks in the pocket's frame: `bias` (the predicted
+            # pocket's mean, or the precomputed pocket's center for stage 1)
+            # is subtracted here and added back to the output
+            init_centered = batch.lig_coords_init - self._masked_mean(
+                batch.lig_coords_init, batch.lig_mask)[:, None]
+            bias = (self._masked_mean(pkt_xyz, pkt_mask) if use_stage2
+                    else batch.pocket_residue_center)
+            pkt_xyz = (pkt_xyz - bias[:, None]) * pkt_mask[..., None]
+            if use_stage2:
+                init_centered = init_centered + self._masked_mean(
+                    pkt_xyz, pkt_mask)[:, None]
+            lig_init = init_centered * batch.lig_mask[..., None]
+        elif use_stage2:
             pkt_center = self._masked_mean(pkt_xyz, pkt_mask)
             init_centered = batch.lig_coords_init - self._masked_mean(
                 batch.lig_coords_init, batch.lig_mask)[:, None]
@@ -222,54 +273,81 @@ class FABind(nn.Module):
         gi = self._graph_inputs(batch, pkt_mask)
         ctx_overflow = G.ctx_overflow_count(
             x, gi.layout, pkt_mask, cfg.normalize(cfg.intra_cutoff), ctx_k)
-        x_out, h_out, _ = self.complex_model(x, h, gi, ctx_k=ctx_k)
+        x_out, h_out, pair_out = self.complex_model(x, h, gi, ctx_k=ctx_k)
 
         layout = gi.layout
+        if cfg.is_plus and cfg.only_last_LAS:
+            x_out = layout.with_lig(x_out, las_projection_step(
+                x_out[:, layout.lig_slice], gi.las_ref, gi.las_adj,
+                cfg.geometry_reg_step_size, cfg.normalize(2.0),
+                steps=cfg.geom_reg_steps))
         coords_n = x_out[:, layout.lig_slice]
         pair_valid = pkt_mask[:, :, None] & batch.lig_mask[:, None, :]
 
-        # distance-map head
-        p_ln = self.layernorm(h_out[:, layout.pkt_slice])
-        c_ln = self.layernorm(h_out[:, layout.lig_slice])
-        z = torch.einsum("bik,bjk->bijk", p_ln, c_ln)
+        # distance-map head: FABind+ reads the pair embedding, base the
+        # product of the layer-normed node embeddings
+        if cfg.is_plus:
+            z = pair_out[:, 1:, 1:]
+        else:
+            p_ln = self.layernorm(h_out[:, layout.pkt_slice])
+            c_ln = self.layernorm(h_out[:, layout.lig_slice])
+            z = torch.einsum("bik,bjk->bijk", p_ln, c_ln)
         y_pred = torch.sigmoid(self.distmap_mlp(z)[..., 0]) * cfg.dis_map_thres
 
         d_n = pairwise_dist(x_out[:, layout.pkt_slice], coords_n)
         y_by_coord = cfg.unnormalize(d_n).clamp(0.0, cfg.dis_map_thres)
         # regression target: stage 1 vs the gt coords; stage 2 vs the init
-        # coords, as the reference computes it
+        # coords, as the reference computes it (FABind+: in the pocket frame)
         lig_ref = batch.lig_coords_init if use_stage2 else batch.lig_coords
+        if cfg.is_plus:
+            lig_ref = lig_ref - bias[:, None]
         dis_map = pairwise_dist(pkt_xyz, lig_ref).clamp(max=cfg.dis_map_thres)
         dis_map = dis_map * pair_valid
 
-        coords = cfg.unnormalize(coords_n) * batch.lig_mask[..., None]
-        return coords, y_pred, y_by_coord, dis_map, pair_valid, ctx_overflow
+        coords = cfg.unnormalize(coords_n)
+        if cfg.is_plus:
+            coords = coords + bias[:, None]
+        coords = coords * batch.lig_mask[..., None]
+
+        confidence = torch.zeros(batch.batch_size, dtype=h_out.dtype,
+                                 device=h_out.device)
+        if cfg.is_plus and cfg.confidence_training:
+            pooled = (h_out * gi.node_mask()[..., None]).sum(1)
+            if cfg.stack_mlp:
+                pooled = F.relu(self.ranking_mlp_pre(pooled))
+            confidence = self.ranking_score_mlp(pooled)[..., 0]
+        return (coords, y_pred, y_by_coord, dis_map, pair_valid, confidence,
+                ctx_overflow)
 
     # ------------------------------------------------------------- inference
     def inference_diag(self, batch: FABindBatch,
                        center_override: Optional[Tensor] = None,
-                       shapes: Optional[ShapeConfig] = None):
-        """Predicted-pocket inference: the rounded-sigmoid pocket center
-        (no-random gumbel fallback), the predicted crop, docking, in the
-        shape bucket `shapes` (default self.shapes: one module, with one copy
-        of the weights, serves every bucket). Returns (coords [B,Nc,3],
-        confidence [B] (zeros for base), pocket_overflow [B])."""
+                       shapes: Optional[ShapeConfig] = None,
+                       pocket: Optional[PocketOut] = None):
+        """Predicted-pocket inference in the shape bucket `shapes` (default
+        self.shapes: one module, with one copy of the weights, serves every
+        bucket): the pocket stage, or `pocket`, the outputs of one run
+        before (a sampling pass docks from its own stochastic pocket stage
+        without running it twice); the rounded-sigmoid pocket center
+        (no-random gumbel fallback) unless `center_override` is given; the
+        predicted crop; docking. Returns (coords [B,Nc,3], confidence [B]
+        (zeros without a confidence head), pocket_overflow [B])."""
         self._check_supported()
         cfg = self.cfg
         shapes = shapes or self.shapes
-        compound_out, protein_out, cls_logits = self._pocket_pred(batch,
-                                                                  shapes)
-        center = pocket_center_rounded(cls_logits, batch.prot_xyz,
-                                       batch.prot_mask, cfg.gs_tau,
-                                       cfg.gs_hard)
-        if center_override is not None:
-            center = center_override
-        idx, mask, _, overflow = self._predicted_crop(center, batch, shapes)
-        coords = self._dock(batch, compound_out, protein_out, idx, mask,
-                            True, shapes.ctx_k)[0]
-        confidence = torch.zeros(batch.batch_size, dtype=coords.dtype,
-                                 device=coords.device)
-        return coords, confidence, overflow
+        if pocket is None:
+            pocket = self._pocket_pred(batch, shapes)
+        compound_out, protein_out, cls_logits, radius_pred = pocket
+        center = center_override
+        if center is None:
+            center = pocket_center_rounded(cls_logits, batch.prot_xyz,
+                                           batch.prot_mask, cfg.gs_tau,
+                                           cfg.gs_hard)
+        idx, mask, _, overflow = self._predicted_crop(
+            center, batch, shapes, self._crop_radius(radius_pred))
+        out = self._dock(batch, compound_out, protein_out, idx, mask, True,
+                         shapes.ctx_k)
+        return out[0], out[5], overflow
 
     def inference(self, batch: FABindBatch,
                   center_override: Optional[Tensor] = None):

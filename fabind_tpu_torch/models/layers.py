@@ -6,8 +6,10 @@ children at indices 0 and 2, the FABind+ MLPs name them linear1/linear2.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional, Sequence, Tuple
+import threading
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,20 +21,79 @@ Tensor = torch.Tensor
 
 ACTS = {"silu": F.silu, "relu": F.relu}
 
+# per thread: (device generator, host generator) of the stochastic forward
+# in progress, or None (the deterministic forward)
+_STOCHASTIC = threading.local()
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator) -> Iterator[torch.Generator]:
+    """Run the forwards of the block stochastically in the current thread,
+    as the JAX package's `deterministic=False`: every Dropout draws its mask
+    from `generator` (on the device of the tensors it masks), and with
+    cfg.random_n_iter each recycle loop's count is drawn on the host from a
+    CPU generator seeded with `generator`'s seed (the host needs the count
+    to launch the loop, and reading it from the device would wait for the
+    device). Other threads are unaffected, so concurrent calls on one shared
+    module (the serving engine's) keep their deterministic forwards."""
+    prev = getattr(_STOCHASTIC, "rngs", None)
+    host = torch.Generator().manual_seed(generator.initial_seed())
+    _STOCHASTIC.rngs = (generator, host)
+    try:
+        yield generator
+    finally:
+        _STOCHASTIC.rngs = prev
+
+
+def active_dropout_rng() -> Optional[torch.Generator]:
+    """The current thread's dropout generator, None when dropout is off."""
+    rngs = getattr(_STOCHASTIC, "rngs", None)
+    return None if rngs is None else rngs[0]
+
+
+def active_host_rng() -> Optional[torch.Generator]:
+    """The current thread's host generator for the recycle counts of a
+    stochastic forward, None in a deterministic one."""
+    rngs = getattr(_STOCHASTIC, "rngs", None)
+    return None if rngs is None else rngs[1]
+
 
 class Dropout(nn.Module):
-    """Identity in eval mode. Stochastic dropout (drawn from an explicit
-    torch.Generator) is ported with the training slice."""
+    """Inverted dropout, on exactly inside a `dropout_rng` block: elements
+    are kept with probability 1 - rate and scaled by 1 / (1 - rate), as
+    flax's nn.Dropout. `.train()` does not turn it on (the training forward
+    is ported with the training slice)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
 
+    @property
+    def active(self) -> bool:
+        return self.rate > 0 and active_dropout_rng() is not None
+
     def forward(self, x: Tensor) -> Tensor:
         if self.training and self.rate > 0:
             raise NotImplementedError(
-                "stochastic dropout is ported with the training slice")
-        return x
+                "the training forward is ported with the training slice")
+        if not self.active:
+            return x
+        keep = torch.rand(x.shape, generator=active_dropout_rng(),
+                          device=x.device) >= self.rate
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+
+
+class LnL1Parts(NamedTuple):
+    """Per-node pieces of `linear1(layernorm([h_dst ++ h_src ++ r]))` over
+    node features h [B, N, C] (see MLPBlock.ln_l1_parts)."""
+
+    a: Tensor       # [B, N, H] the dst block, (gamma * W)_dst h
+    w_src: Tensor   # [H, C] the gamma-scaled src block of linear1's weight
+    w_r: Tensor     # [H] the gamma-scaled radial column
+    u: Tensor       # [H] the gamma-scaled weight summed over the input
+    c: Tensor       # [H] W beta + b
+    t: Tensor       # [B, N] float32 sum of h over C
+    q: Tensor       # [B, N] float32 sum of h^2 over C
 
 
 class MLPBlock(nn.Module):
@@ -103,6 +164,52 @@ class MLPBlock(nn.Module):
             x = self.layernorm(x)
         return self.finish_scalar(self.lin1(x))
 
+    def ln_l1_parts(self, h: Tensor) -> LnL1Parts:
+        """Per-node pieces of `linear1(layernorm(v))` for the edge input
+        v = [h_dst ++ h_src ++ r] of width D = 2C + 1 (the released FABind+
+        edge MLPs). LayerNorm's statistics are sums, so with per-node
+        t = sum(h) and q = sum(h^2) each edge's mean and variance come back
+        in O(1), and the normalize-then-project algebra folds into per-node
+        products:
+
+            linear1(LN(v)) = inv * (A h_dst + S h_src + r w_r - mu u) + c
+            mu = (t_dst + t_src + r) / D
+            inv = rsqrt((q_dst + q_src + r^2) / D - mu^2 + eps)
+            A, S, w_r = the dst, src and radial blocks of gamma * W
+            u = sum over the input of gamma * W,   c = W beta + b
+
+        The src block stays a per-edge product ([E, C] @ [C, H], half the
+        fused [E, 2C+1] @ [2C+1, H]): projecting per node would gather
+        H-wide rows instead of C-wide ones. The statistics accumulate in
+        float32 in bf16 too: q/D - mu^2 cancels badly in bf16."""
+        assert self.use_ln
+        C = h.shape[-1]
+        W, b = self.lin1.weight, self.lin1.bias          # [H, D], [H]
+        Wg = W * self.layernorm.weight                    # gamma per input
+        hf = h.float()
+        return LnL1Parts(
+            a=F.linear(h, Wg[:, :C]), w_src=Wg[:, C:2 * C], w_r=Wg[:, 2 * C],
+            u=Wg.sum(1), c=F.linear(self.layernorm.bias, W, b),
+            t=hf.sum(-1), q=(hf * hf).sum(-1))
+
+    def ln_l1_edges(self, parts: LnL1Parts, a_dst: Tensor, t_dst: Tensor,
+                    q_dst: Tensor, h_src: Tensor, radial: Tensor) -> Tensor:
+        """linear1(layernorm([h_dst ++ h_src ++ radial])) per edge from the
+        destinations' parts (a_dst [..., H], t_dst and q_dst [...], each
+        indexed or broadcast to the edges), the gathered source features
+        h_src [..., C] and the edges' radial [...]."""
+        hf = h_src.float()
+        D = 2 * h_src.shape[-1] + 1
+        rf = radial.float()
+        mu = (t_dst + hf.sum(-1) + rf) / D
+        var = (q_dst + (hf * hf).sum(-1) + rf * rf) / D - mu * mu
+        inv = torch.rsqrt(var + 1e-5)
+        dt = a_dst.dtype
+        pre = (a_dst + F.linear(h_src, parts.w_src)
+               + rf[..., None].to(dt) * parts.w_r
+               - mu[..., None].to(dt) * parts.u)
+        return inv[..., None].to(dt) * pre + parts.c
+
     def finish_scalar_rank1_pair(self, l1_a: Tensor, l1_b: Tensor, r: Tensor,
                                  u: Tensor) -> Tuple[Tensor, Tensor]:
         """finish_scalar over the rank-1-structured pre-activations of both
@@ -113,11 +220,9 @@ class MLPBlock(nn.Module):
             ba[b,j,i] over l1_a[b,i,:] + r[b,i,j] * u   -> [B, Nb, Na]
 
         One launch of the edge-gate kernel (ops/edge_gate.py) when dropout
-        is inactive and act is silu or relu; else both are materialized."""
+        is off and act is silu or relu; else both are materialized."""
         assert self.out_dim == 1 and not self.last_act and not self.use_ln
-        drop_active = (self.training and self.dropout_rate > 0
-                       and self.dropout_pos in ("inner", "both"))
-        if drop_active or self.act not in ("silu", "relu"):
+        if self.dropout1.active or self.act not in ("silu", "relu"):
             return (self.finish_scalar(l1_b[:, None] + r[..., None] * u),
                     self.finish_scalar(l1_a[:, None]
                                        + r.transpose(1, 2)[..., None] * u))

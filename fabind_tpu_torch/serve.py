@@ -14,16 +14,22 @@ come back in the world frame of the input structure.
 - Protein rows seen before stay on the device (an LRU keyed by content), so
   a repeated protein skips its upload; `dock_screen` uploads its one protein
   once per bucket.
+- FABind+ presets serve the same way; `dock_best_of` runs best-of-N
+  sampling (sample.py) and keeps each request's most confident pose.
 
 Example:
     eng = DockingEngine(preset("fabind"), state_dict=sd)   # on the GPU, bf16
     poses = eng.dock_raw(raws)
     poses[0].coords    # [n_atoms, 3] float32
+    best = DockingEngine(preset("fabind_plus_sampling"), state_dict=sd_plus
+                         ).dock_best_of(raws, sample_size=40, seed=0)
 
 Thread safety: every dock_* method may be called from several threads at
 once. The protein-row cache is read and filled under an RLock; the model runs
 outside it (its forward keeps no state), so concurrent calls interleave at
-batch granularity and give the poses of serial calls.
+batch granularity and give the poses of serial calls. `dock_best_of` turns
+dropout on for its own thread only (layers.dropout_rng), so a concurrent
+dock_raw on the same engine stays deterministic.
 """
 from __future__ import annotations
 
@@ -43,6 +49,7 @@ from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays, to_device
 from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.postopt import post_optimize_batch
+from fabind_tpu_torch.sample import sample_poses
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
                                               cast_module_bf16,
                                               cast_tensor_bf16)
@@ -59,7 +66,8 @@ class Pose:
     error: Optional[str] = None        # set when the request was skipped
     pocket_truncated: int = 0          # predicted-keep residues dropped by
     #                                    the Np bucket (re-dock with a larger
-    #                                    bucket when > 0)
+    #                                    bucket when > 0); not measured by
+    #                                    dock_best_of
 
 
 class DockingEngine:
@@ -67,8 +75,9 @@ class DockingEngine:
     device.
 
     Args:
-      cfg: FABindConfig (e.g. `preset("fabind")`); cfg.shapes is the largest
-        accepted complex size.
+      cfg: FABindConfig (`preset("fabind")`, `"fabind_plus"` or
+        `"fabind_plus_sampling"`); cfg.shapes is the largest accepted
+        complex size.
       state_dict: port state dict (`train.convert.state_dict_from_flax` or
         `load_torch_checkpoint`), loaded with strict=True. None draws seeded
         random weights from `seed`.
@@ -222,11 +231,30 @@ class DockingEngine:
         with torch.inference_mode():
             coords, conf, overflow = self.model.inference_diag(
                 batch, shapes=cfg_b.shapes)
-            if self.post_optim_steps:
-                coords, _ = post_optimize_batch(
-                    coords, batch.lig_rdkit_coords, batch.las_adj,
-                    batch.lig_mask, steps=self.post_optim_steps)
-        return coords, conf, overflow
+        return self._post_optimize(coords, batch), conf, overflow
+
+    def _best_of_batch(self, batch: FABindBatch, cfg_b: FABindConfig,
+                      sample_size: int, seed: int, batch_idx: int):
+        """Best-of-N for one batch of bucket cfg_b: (the most confident of
+        `sample_size` sampled poses [B,Nc,3] in float32, its confidence [B],
+        zeros [B]: the crop's overflow is not measured on this path), on
+        the device. The winner is post-optimized when post_optim_steps > 0,
+        in float32 as the JAX package does: in bf16 a coordinate near 32 A
+        moves in steps of 0.25 A, and most lr-0.1 Adam updates round
+        away."""
+        coords, scores = sample_poses(self.model, batch, cfg_b, sample_size,
+                                      seed=seed, batch_idx=batch_idx)
+        best = scores.float().argmax(0)                       # [B]
+        rows = torch.arange(best.shape[0], device=best.device)
+        return (self._post_optimize(coords[best, rows].float(), batch),
+                scores[best, rows], torch.zeros_like(best))
+
+    def _post_optimize(self, coords, batch: FABindBatch):
+        if not self.post_optim_steps:
+            return coords
+        return post_optimize_batch(coords, batch.lig_rdkit_coords,
+                                   batch.las_adj, batch.lig_mask,
+                                   steps=self.post_optim_steps)[0]
 
     @staticmethod
     def _collect(inflight, results: List[Optional[Pose]]) -> None:
@@ -267,6 +295,29 @@ class DockingEngine:
         inflight = [(chunk, n_real, self.run_batch(batch, cfg_b))
                     for chunk, cfg_b, batch, n_real
                     in self.batches(raws, results)]
+        self._collect(inflight, results)
+        return results   # type: ignore[return-value]
+
+    def dock_best_of(self, raws: Sequence[Dict[str, np.ndarray]],
+                     sample_size: int = 40, seed: int = 0) -> List[Pose]:
+        """FABind+ best-of-N sampling: `sample_size` stochastic docking
+        passes per request (dropout on, host DBSCAN pocket centers when
+        cfg.model.use_clustering), each request's pose with the highest
+        confidence kept. Routing, the protein-row cache, the bf16 cast and
+        the post-optimization (of the winner only) are dock_raw's. The same
+        seed on the same device gives the same poses. Needs a confidence
+        head (preset "fabind_plus_sampling"); pocket_truncated is not
+        measured on this path."""
+        if not self.cfg.model.confidence_training:
+            raise ValueError("dock_best_of ranks poses by the confidence "
+                             "head: serve preset 'fabind_plus_sampling'")
+        if sample_size < 1:
+            raise ValueError(f"sample_size {sample_size} < 1")
+        results: List[Optional[Pose]] = [None] * len(raws)
+        inflight = [(chunk, n_real,
+                     self._best_of_batch(batch, cfg_b, sample_size, seed, bi))
+                    for bi, (chunk, cfg_b, batch, n_real)
+                    in enumerate(self.batches(raws, results))]
         self._collect(inflight, results)
         return results   # type: ignore[return-value]
 

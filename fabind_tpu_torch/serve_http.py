@@ -16,9 +16,13 @@ Endpoints:
   POST /screen    -> body: .npz bytes; one protein under "protein_xyz" and
                      "esm_feat", the ligands under "r{i}_" prefixes. Same
                      response.
-Any other path answers 404. (/dock, /dock_sdf and /dock_best_of of the JAX
-daemon need featurization from files and sampling, which the port does not
-have yet.)
+  POST /dock_best_of?sample_size=N&seed=K
+                  -> the /dock_raw body; FABind+ best-of-N sampling (the
+                     most confident of N poses per request; defaults N=40,
+                     K=0). Needs an engine with a confidence head (preset
+                     fabind_plus_sampling). Same response.
+Any other path answers 404. (/dock and /dock_sdf of the JAX daemon need
+featurization from files, which the port does not have yet.)
 
 Run:  python -m fabind_tpu_torch.cli.serve --preset fabind --port 8400
 
@@ -37,6 +41,7 @@ import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
@@ -131,12 +136,19 @@ def make_server(engine, host: str = "127.0.0.1", port: int = 8400,
                     return self._error(
                         413, f"body {n} bytes exceeds limit "
                              f"{max_body_bytes}")
-                if self.path not in ("/dock_raw", "/screen"):
+                url = urlparse(self.path)
+                if url.path not in ("/dock_raw", "/screen", "/dock_best_of"):
                     return self._error(404, "not found")
                 reqs = _group_npz(self.rfile.read(n))
-                if self.path == "/dock_raw":
+                if url.path == "/dock_raw":
                     with inflight:
                         poses = engine.dock_raw(reqs)
+                elif url.path == "/dock_best_of":
+                    q = parse_qs(url.query)
+                    kw = {k: int(q[k][0]) for k in ("sample_size", "seed")
+                          if k in q}
+                    with inflight:
+                        poses = engine.dock_best_of(reqs, **kw)
                 else:
                     if not reqs or "protein_xyz" not in reqs[0]:
                         return self._error(

@@ -2,7 +2,7 @@
 its one-direction launch (phi_rank1) and its paired launch over both
 attention directions (phi_rank1_pair); and the serving engine on the card
 (bf16 against fp32, bucket routing, the protein-row cache, the launch count
-under threads).
+under threads; FABind+ against the CPU, seeded best-of-N sampling).
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -255,3 +255,48 @@ def test_launch_count_under_threads(cuda):
     for got, want in zip(out, serial):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.coords, w.coords)
+
+
+def _plus_engine(name, device=None, **kw):
+    """FABind+ at toy widths and its released depth (5 layers x 8
+    recycles) over the two toy buckets."""
+    cfg = preset(name, **ENGINE_KW)
+    small = dataclasses.replace(cfg.shapes, max_ligand=8, max_pocket=16,
+                                max_protein=32)
+    return DockingEngine(cfg, buckets=[small, cfg.shapes], batch_size=2,
+                         seed=0, device=device, **kw)
+
+
+def test_plus_dock_raw_on_card_matches_cpu(cuda):
+    """FABind+ dock_raw in fp32 on the card against the same engine on the
+    CPU (TF32 off): the same errors and crops, poses within 1e-3 A; no
+    edge-gate launch on the card."""
+    raws = _requests()
+    before = edge_gate.KERNEL.launches
+    card = _plus_engine("fabind_plus", bf16=False).dock_raw(raws)
+    assert edge_gate.KERNEL.launches == before
+    host = _plus_engine("fabind_plus", device="cpu", bf16=False).dock_raw(raws)
+    for a, b in zip(card, host):
+        assert a.error == b.error
+        if a.error is None:
+            assert a.pocket_truncated == b.pocket_truncated
+            np.testing.assert_allclose(a.coords, b.coords, atol=1e-3, rtol=0)
+
+
+def test_dock_best_of_seeded_on_card(cuda):
+    """bf16 best-of-N on the card: the same seed gives the same poses bit
+    for bit, another seed other poses."""
+    eng = _plus_engine("fabind_plus_sampling")
+    raws = _requests()
+    a, b = (eng.dock_best_of(raws, sample_size=4, seed=1) for _ in range(2))
+    c = eng.dock_best_of(raws, sample_size=4, seed=2)
+    assert a[2].error is not None and "exceeds every bucket" in a[2].error
+    diff = []
+    for x, y, z in zip(a, b, c):
+        assert x.error == y.error == z.error
+        if x.error is None:
+            assert np.isfinite(x.coords).all()
+            np.testing.assert_array_equal(x.coords, y.coords)
+            assert x.confidence == y.confidence
+            diff.append(np.abs(x.coords - z.coords).max())
+    assert max(diff) > 0

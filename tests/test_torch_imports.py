@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and it
-never falls back to the CPU on its own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+scikit-learn, which the card's machine lacks), and it never falls back to
+the CPU on its own."""
 import json
 import pkgutil
 import subprocess
@@ -20,14 +21,14 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         fabind_tpu_torch.__path__, "fabind_tpu_torch."))
     for m in ("ops.edge_gate", "utils.precision", "data.buckets", "postopt",
-              "serve_http", "cli.serve"):
+              "serve_http", "cli.serve", "sample"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'fabind_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'fabind_tpu', 'sklearn'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)

@@ -305,7 +305,7 @@ def test_dock_raw_bf16_matches_jax_bf16(served):
             {"params": p}, b, method="inference_flexible"))(j16.params,
                                                             jbatch)
         with torch.inference_mode():
-            _, _, cls = eng.model._pocket_pred(batch, cfg_b.shapes)
+            _, _, cls, _ = eng.model._pocket_pred(batch, cfg_b.shapes)
             center = pocket_center_rounded(cls, batch.prot_xyz,
                                            batch.prot_mask, cfg.model.gs_tau,
                                            cfg.model.gs_hard)

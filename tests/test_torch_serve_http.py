@@ -125,16 +125,62 @@ def test_http_refusals(server):
         small.server_close()
         t.join(timeout=30)
     # routes of the JAX daemon the port does not serve, and unknown ones
-    for path in ("/dock", "/dock_sdf", "/dock_best_of", "/nope"):
+    for path in ("/dock", "/dock_sdf", "/nope"):
         assert _status(base + path, b"{}") == 404
-    # /screen without a protein
+    # best-of-N on an engine without a confidence head
     lig = make_raw(n=5, nr=20, seed=4)
+    body = _npz({f"r0_{k}": v for k, v in lig.items()})
+    try:
+        _post(base + "/dock_best_of?sample_size=2", body)
+        raise AssertionError("expected 500")
+    except urllib.error.HTTPError as e:
+        assert e.code == 500
+        assert "confidence" in json.loads(e.read())["error"]
+    # /screen without a protein
     assert _status(base + "/screen",
                    _npz({f"r0_{k}": lig[k] for k in _LIG_KEYS})) == 400
     # a body that is no npz is a 500 for that request only
     assert _status(base + "/dock_raw", b"not an npz") == 500
     with urllib.request.urlopen(base + "/health", timeout=30) as r:
         assert r.status == 200
+
+
+def test_http_dock_best_of(monkeypatch):
+    """POST /dock_best_of?sample_size=N&seed=K on a FABind+ sampling engine:
+    the poses of engine.dock_best_of with the same arguments, bit for bit;
+    without a query the engine's defaults (40 passes, seed 0)."""
+    cfg = preset("fabind_plus_sampling", **TINY)
+    eng = DockingEngine(cfg, batch_size=2, device="cpu")
+    srv = make_server(eng, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    raws = [make_raw(n=5, nr=20, seed=1), make_raw(n=12, nr=40, seed=2),
+            make_raw(n=40, nr=40, seed=3)]
+    body = _npz({f"r{i}_{k}": v for i, raw in enumerate(raws)
+                 for k, v in raw.items()})
+    try:
+        status, poses = _post(base + "/dock_best_of?sample_size=3&seed=5",
+                              body)
+        calls = []
+        best_of = eng.dock_best_of
+        monkeypatch.setattr(eng, "dock_best_of",
+                            lambda r, **kw: calls.append(kw) or best_of(
+                                r, sample_size=2))
+        assert _post(base + "/dock_best_of", body)[0] == 200
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+    assert calls == [{}]
+    want = best_of(raws, sample_size=3, seed=5)
+    assert status == 200 and len(poses) == 3
+    for p, w, c in zip(poses, want, _coords(poses)):
+        assert p["error"] == w.error
+        if w.error is None:
+            np.testing.assert_array_equal(c, w.coords)
+            assert p["confidence"] == np.float32(w.confidence)
+            assert w.confidence != 0.0
 
 
 def test_group_npz_and_poses_json_match_jax():
@@ -200,14 +246,31 @@ def test_cli_serve_flags(tmp_path, monkeypatch):
                for p in eng.model.state_dict().values())
 
 
+def test_cli_serve_fabind_plus_sampling(monkeypatch):
+    from fabind_tpu_torch.cli import serve as cs
+
+    captured = _capture_serve(monkeypatch)
+    cs.main(["--preset", "fabind_plus_sampling", "--device", "cpu",
+             "--buckets", "8:16:32,16:24:48"] + _TINY_SET)
+    eng = captured["engine"]
+    m = eng.cfg.model
+    assert m.is_plus and m.confidence_training and m.use_clustering
+    assert eng.bf16 and m.hidden_size == TINY["hidden_size"]
+    poses = eng.dock_best_of([make_raw(n=5, nr=20, seed=1)], sample_size=2)
+    assert poses[0].error is None and np.isfinite(poses[0].coords).all()
+
+
 def test_cli_serve_refuses_what_is_not_ported(monkeypatch):
     from fabind_tpu_torch.cli import serve as cs
 
     _capture_serve(monkeypatch)
     with pytest.raises(SystemExit, match="dataset reader"):
         cs.main(["--buckets", "auto", "--device", "cpu"] + _TINY_SET)
-    with pytest.raises(NotImplementedError, match="items 9"):
-        cs.main(["--preset", "fabind_plus", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="fabflex"):
+        cs.main(["--preset", "fabflex", "--device", "cpu"])
+    for flag in (["--dp", "2"], ["--exported", "x"]):
+        with pytest.raises(SystemExit):
+            cs.main(flag + ["--device", "cpu"] + _TINY_SET)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cs.main(_TINY_SET)

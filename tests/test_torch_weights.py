@@ -1,5 +1,6 @@
 """The weight bridge: flax parameter trees -> port state dicts that load with
-strict=True, for both released model families."""
+strict=True, for both released model families and the FABind+ confidence
+heads."""
 import jax
 import numpy as np
 import pytest
@@ -33,10 +34,11 @@ def _flax_params(name):
         lambda s: rng.randn(*s.shape).astype(np.float32), shapes)
 
 
-@pytest.mark.parametrize("name", ["fabind", "fabind_plus"])
+@pytest.mark.parametrize("name", ["fabind", "fabind_plus",
+                                  "fabind_plus_sampling"])
 def test_flax_params_load_strict(name):
     params = _flax_params(name)
-    is_plus = name == "fabind_plus"
+    is_plus = name != "fabind"
     sd = state_dict_from_flax(params, is_plus=is_plus)
     model = make_model(preset(name, **dict(TINY, mean_layers=2)))
     result = model.load_state_dict(sd, strict=True)
