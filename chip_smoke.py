@@ -39,17 +39,38 @@ Phases, each of which raises on failure (non-zero exit):
      winner is float32 and finite, its configuration loss no higher than
      the unrefined winner's. Times: best-of-8
      complexes/s (and in the fixed pocket mode), ms per pass of the pocket
-     and docking halves, host DBSCAN ms per pass, one best-of-40 batch.
+     and docking halves, host DBSCAN ms per pass, one best-of-40 batch;
+  7. training through `cli.train.main` (preset `fabind` at released width,
+     dropout 0.1, recycle counts drawn, batch 8, the same buckets; the 32
+     requests written as an NPZ directory): two epochs with evaluation at
+     stages 1 and 2 and checkpoints, a SIGTERM at step 3 and a resume whose
+     steps equal the unbroken run's, bf16 and bf16 with remat runs, and a
+     short `fabind_plus` run whose requests carry isomorphisms. Checks:
+     finite losses and no skipped step, parameters moved, the gate launched
+     once per attention layer of each forward (and again for each layer a
+     remat backward recomputes; 33 per evaluation batch and stage, 0 for
+     FABind+); and with the Trainer directly, a dropout-0 fp32 step with the
+     kernel against one with the plain gate, a NaN batch leaving the
+     parameters and the optimizer bit for bit, remat on and off with dropout
+     on, bf16 within 10% of fp32. Times: train step ms per bucket (fp32,
+     bf16, bf16 with remat), samples/s over an epoch, peak device memory,
+     the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
-beside PATH, the bucket in its name, for base and for FABind+.
+beside PATH, the bucket in its name, for base and for FABind+, and one of a
+training step (large bucket, fp32 and bf16).
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gc
 import io
 import json
+import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -61,10 +82,15 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from fabind_tpu_torch.cli import train as cli_train
 from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.data.batching import build_sample
 from fabind_tpu_torch.data.buckets import resolve_buckets, route_sample
+from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models import layers
+from fabind_tpu_torch.models.att_model import EfficientMCAttModel
+from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.models.layers import dropout_rng
 from fabind_tpu_torch.ops import edge_gate
 from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
@@ -75,6 +101,8 @@ from fabind_tpu_torch.sample import (dbscan_clusters, pass_generator,
                                      sample_poses)
 from fabind_tpu_torch.serve import DockingEngine
 from fabind_tpu_torch.serve_http import make_server
+from fabind_tpu_torch.train.checkpoints import TrainCheckpointer
+from fabind_tpu_torch.train.trainer import Trainer, step_generator
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -135,11 +163,52 @@ N_BEST_OF = 16
 SAMPLES = 8
 SAMPLE_SEED = 3
 SAMPLES_LARGE = 40
+# training: epochs of each run, the step a SIGTERM arrives in, and where the
+# NPZ directories and runs go (git-ignored)
+TRAIN_EPOCHS = 2
+STOP_AT_STEP = 3
+TRAIN_ROOT = Path("build/chip_smoke_train")
+# a dropout-0 fp32 step with the kernel vs with the plain gate: relative
+# loss difference, and each gradient tensor's max difference over its max
+# (floored, see grad_rel_err). On the H100 the loss came out bit-equal and
+# the gradients 3.0e-6 apart; the gradient limit sits ~30x above that
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1e-4
+# remat on vs off (dropout on): the forward is the same computation; the
+# backward's scatter-adds may sum in another order
+REMAT_LOSS_RTOL = 1e-6
+REMAT_GRAD_RTOL = 1e-4
+# the step after a resume vs the unbroken run's: the card's atomics make
+# the two runs' parameters drift apart in the last bits
+RESUME_LOSS_RTOL = 1e-3
+# bf16 vs fp32 first-step loss (tests/test_train.py's bound)
+BF16_LOSS_RTOL = 0.1
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def reset_peak() -> tuple:
+    """Start a phase's peak-memory reading: run Python's cyclic collector
+    (a deleted engine or trainer can sit in a reference cycle until it
+    runs, and when it runs moves with every import), then zero the peak
+    counter. Returns (bytes allocated now, which the peak includes; bytes
+    the collection freed)."""
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    return held, before - held
+
+
+def print_peak(what: str, held: tuple, card_line: str) -> None:
+    print(f"peak device memory {what}: "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, of which "
+          f"{held[0] / 2**30:.2f} GiB allocated when it began (after a "
+          f"cyclic collection that freed {held[1] / 2**30:.2f} GiB) "
+          f"[{card_line}]")
 
 
 def card():
@@ -630,12 +699,11 @@ def plus_phase(raws, buckets, card_line, profile):
           sorted({p.confidence for p in poses}))
     batches = first_batches(engine, {k: v for k, v in by_bucket.items()
                                      if v})
-    torch.cuda.reset_peak_memory_stats()
+    held = reset_peak()
     lat, syncs = time_engine(engine, batches, raws, "fabind_plus bf16",
                              card_line)
-    print(f"peak device memory fabind_plus bf16 engine (timed batches and "
-          f"dock_raw): {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card_line}]")
+    print_peak("fabind_plus bf16 engine (timed batches and dock_raw)", held,
+               card_line)
     if profile:
         profile_engine(syncs, lat, profile, "_plus", card_line)
     del syncs
@@ -796,10 +864,414 @@ def best_of_phase(raws, buckets, card_line):
     torch.cuda.empty_cache()
 
 
-def time_kernel_rows(served, max_err, launches, sms, clock_hz, card_line):
+def write_npz_dir(raws, root: Path, isomorphisms: bool = False) -> str:
+    """The requests as an NPZ training directory (r00.npz, ...); with
+    `isomorphisms` each carries [identity, chain reversed], the automorphisms
+    of its chain ligand."""
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    for i, raw in enumerate(raws):
+        extra = {}
+        if isomorphisms:
+            n = raw["lig_coords"].shape[0]
+            extra["isomorphisms"] = np.stack(
+                [np.arange(n), np.arange(n)[::-1]]).astype(np.int32)
+        np.savez(root / f"r{i:02d}.npz", **raw, **extra)
+    return str(root)
+
+
+class TrainProbe:
+    """While open, records each Trainer.train_step (bucket, host seconds
+    from a synchronized start to the metrics read back, gate launches, the
+    launches its forward and backward should make, its recycle rounds) and
+    each eval_step (stage, bucket, launches). The gate launches once per
+    attention layer of every recycle round of the base model (the coord
+    MLP has no dropout, so the JAX package's rule keeps the gate on in
+    training), and once more per layer of a round that remat recomputes in
+    the backward."""
+
+    def __init__(self):
+        self.steps, self.evals = [], []
+
+    def __enter__(self):
+        probe = self
+        self.orig = (Trainer.train_step, Trainer.eval_step,
+                     EfficientMCAttModel._step)
+
+        def round_spy(model, *a, **kw):
+            probe.rounds.append((model.gnn.n_layers, torch.is_grad_enabled(),
+                                 model.n_iter))
+            return probe.orig[2](model, *a, **kw)
+
+        def train_step(tr, batch, bucket_cfg=None, **kw):
+            probe.rounds = []
+            torch.cuda.synchronize()
+            before = edge_gate.KERNEL.launches
+            t0 = time.perf_counter()
+            m = probe.orig[0](tr, batch, bucket_cfg, **kw)
+            sec = time.perf_counter() - t0
+            mcfg = tr.cfg.model
+            expected = 0 if mcfg.is_plus else sum(
+                n * (1 + (mcfg.remat and grad)) for n, grad, _ in probe.rounds)
+            probe.steps.append(dict(
+                label=bucket_label(bucket_cfg.shapes), s=sec, metrics=m,
+                launches=edge_gate.KERNEL.launches - before,
+                expected=expected,
+                recycles=sum(1 for _, _, n in probe.rounds
+                             if n == mcfg.n_iter)))
+            return m
+
+        def eval_step(tr, batch, stage=2, bucket_cfg=None):
+            before = edge_gate.KERNEL.launches
+            out = probe.orig[1](tr, batch, stage, bucket_cfg)
+            probe.evals.append(dict(stage=stage,
+                                    label=bucket_label(bucket_cfg.shapes),
+                                    launches=edge_gate.KERNEL.launches
+                                    - before))
+            return out
+
+        Trainer.train_step, Trainer.eval_step = train_step, eval_step
+        EfficientMCAttModel._step = round_spy
+        return self
+
+    def __exit__(self, *exc):
+        (Trainer.train_step, Trainer.eval_step,
+         EfficientMCAttModel._step) = self.orig
+
+    def launches_by_bucket(self):
+        out = {}
+        for r in self.steps + self.evals:
+            out[r["label"]] = out.get(r["label"], 0) + r["launches"]
+        return out
+
+
+def train_cli(data, out, *extra, preset_name="fabind", epochs=TRAIN_EPOCHS,
+              on_step=None):
+    """cli.train.main over `data` into `out` at released width and the
+    phase-3 buckets, batch 8; must return 0."""
+    argv = ["--preset", preset_name, "--data", data, "--output", str(out),
+            "--epochs", str(epochs), "--batch-size", str(BATCH),
+            "--buckets", BUCKETS, "--workers", "4", "--prefetch", "2",
+            "--keep", "1", *extra]
+    for k, v in SMOKE_SHAPES.items():
+        argv += ["--set", f"{k}={v}"]
+    rc = cli_train.main(argv, on_step=on_step)
+    check(rc == 0, f"cli.train {' '.join(argv)} returned {rc}")
+
+
+def check_steps(probe, what, eval_launches=33):
+    """Every step finite and not skipped, its gate launches as expected,
+    `eval_launches` per evaluation batch and stage."""
+    check(bool(probe.steps), f"{what}: no train step ran")
+    for i, r in enumerate(probe.steps):
+        m = r["metrics"]
+        check(m["skipped_nan"] == 0.0, f"{what} step {i}: skipped")
+        check(all(np.isfinite(v) for v in m.values()),
+              f"{what} step {i}: a metric is not finite: {m}")
+        check(r["launches"] == r["expected"],
+              f"{what} step {i}: {r['launches']} gate launches, expected "
+              f"{r['expected']} ({r['recycles']} docking recycles)")
+    for r in probe.evals:
+        check(r["launches"] == eval_launches,
+              f"{what} eval stage {r['stage']} bucket {r['label']}: "
+              f"{r['launches']} gate launches, expected {eval_launches}")
+
+
+def epoch_records(out):
+    """The cli's per-epoch records (seconds, samples, samples_per_s)."""
+    with open(Path(out) / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    return [r for r in recs if r["phase"] == "epoch"]
+
+
+def report_run(probe, out, what, card_line, serve_ms=None):
+    """Step ms per bucket (median and range; recycle counts are drawn, so
+    the range is wide) against the served batch of the same bucket, and
+    the samples/s of each epoch."""
+    for label in sorted({r["label"] for r in probe.steps}):
+        rs = [r for r in probe.steps if r["label"] == label]
+        ms = [r["s"] * 1e3 for r in rs]
+        vs = ("" if not serve_ms or label not in serve_ms else
+              f"; served bf16 batch of the bucket {serve_ms[label]:.2f} ms")
+        print(f"time train step {what} bucket {label} ({len(ms)} steps of "
+              f"{BATCH}): median {statistics.median(ms):.2f} ms, range "
+              f"{min(ms):.2f}-{max(ms):.2f} ms, docking recycles "
+              f"{[r['recycles'] for r in rs]}{vs} [{card_line}]")
+    for r in epoch_records(out):
+        print(f"time train epoch {what} {int(r['epoch'])}: {r['samples']} "
+              f"samples in {r['seconds']:.3f} s, {r['samples_per_s']:.2f} "
+              f"samples/s [{card_line}]")
+
+
+def first_batch(data, cfg, buckets, label=None):
+    """(batch on the card, bucket cfg) of the first training batch (of
+    bucket `label`) of `data`."""
+    src, names = open_source(data)
+    loader = Loader(src, names, cfg, seed=cfg.train.seed, buckets=buckets)
+    for arrays, meta in loader.epoch(0, with_meta=True):
+        if label is None or bucket_label(meta["cfg"].shapes) == label:
+            return FABindBatch.from_numpy(arrays, "cuda"), meta["cfg"]
+    raise RuntimeError(f"no batch in bucket {label}")
+
+
+def grads_of(trainer):
+    return {n: p.grad.detach().clone()
+            for n, p in trainer.model.named_parameters() if p.grad is not None}
+
+
+def grad_rel_err(a, b):
+    """(largest relative error, its tensor's name): over the gradient
+    tensors, max|a - b| over the larger of max|b| and 1e-3 of the largest
+    gradient anywhere (a tensor whose gradient is ~0 is held to the
+    model's scale, not to its own rounding noise)."""
+    check(set(a) == set(b), "the same gradient tensors")
+    floor = 1e-3 * max(float(g.abs().max()) for g in b.values())
+    errs = {n: float((a[n] - b[n]).abs().max())
+            / max(float(b[n].abs().max()), floor) for n in b}
+    name = max(errs, key=errs.get)
+    return errs[name], name
+
+
+def trainer_checks(data, buckets, card_line):
+    """With the Trainer directly at released width: the kernel against the
+    plain gate in a dropout-0 fp32 step; a NaN batch; remat on and off with
+    dropout on."""
+    cfg0 = preset("fabind", dropout=0.0, random_n_iter=False, stage_prob=0.0,
+                  **SMOKE_SHAPES)
+    model = make_model(cfg0)
+    init_params(model, torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    batch, cfg_b = first_batch(data, cfg0, buckets,
+                               bucket_label(buckets[-1]))
+    tr = Trainer(cfg0, "cuda", state_dict=sd)
+    edge_gate.KERNEL.launches = 0
+    loss_k = float(tr._forward_loss(batch, cfg_b, step_generator(0, 0, "cuda"),
+                                    None)["loss"].detach())
+    torch.cuda.synchronize()
+    launches = edge_gate.KERNEL.launches
+    g_k = grads_of(tr)
+    orig = layers.phi_rank1_pair
+    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
+    try:
+        loss_p = float(tr._forward_loss(batch, cfg_b,
+                                        step_generator(0, 0, "cuda"),
+                                        None)["loss"].detach())
+    finally:
+        layers.phi_rank1_pair = orig
+    err, worst = grad_rel_err(g_k, grads_of(tr))
+    dl = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"train dropout-0 fp32 step bucket {bucket_label(cfg_b.shapes)}, "
+          f"kernel vs plain gate: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{dl:.3e}, limit {TRAIN_LOSS_RTOL}), gradients max rel err "
+          f"{err:.3e} ({worst}; limit {TRAIN_GRAD_RTOL}); kernel launches "
+          f"{launches} (forward; the backward is the plain VJP)")
+    check(launches == 33, f"dropout-0 step launched the gate {launches} times")
+    check(dl <= TRAIN_LOSS_RTOL and err <= TRAIN_GRAD_RTOL,
+          "dropout-0 step: kernel vs plain gate")
+
+    # a NaN batch changes nothing, on the card
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    tr = Trainer(cfg, "cuda", state_dict=sd)
+    check(tr.train_step(batch, cfg_b)["skipped_nan"] == 0.0, "a good step")
+    before = tr.state_dict()
+    bad = dataclasses.replace(batch, lig_coords=batch.lig_coords.clone())
+    bad.lig_coords[0, 0, 0] = float("nan")
+    m = tr.train_step(bad, cfg_b)
+    after = tr.state_dict()
+    same = (all(torch.equal(v, after["model"][k])
+                for k, v in before["model"].items())
+            and before["optimizer"]["updates"] == after["optimizer"]["updates"]
+            and all(torch.equal(v, after["optimizer"]["opt"]["state"][i][k])
+                    for i, st in before["optimizer"]["opt"]["state"].items()
+                    for k, v in st.items()))
+    print(f"train NaN batch: skipped_nan {m['skipped_nan']}, loss "
+          f"{m['loss']}, parameters and optimizer state bit-identical {same}")
+    check(m["skipped_nan"] == 1.0 and same, "NaN batch left the state as is")
+
+    # remat on and off, dropout on, the same seeds
+    res = {}
+    for remat in (False, True):
+        c = preset("fabind", remat=remat, **SMOKE_SHAPES)
+        t = Trainer(c, "cuda", state_dict=sd)
+        loss = float(t._forward_loss(batch, cfg_b,
+                                     step_generator(5, 0, "cuda"),
+                                     None)["loss"].detach())
+        res[remat] = (loss, grads_of(t))
+    dl = abs(res[True][0] - res[False][0]) / abs(res[False][0])
+    err, worst = grad_rel_err(res[True][1], res[False][1])
+    print(f"train remat on vs off (dropout 0.1, same seeds): loss "
+          f"{res[True][0]:.6f} vs {res[False][0]:.6f} (rel {dl:.3e}, limit "
+          f"{REMAT_LOSS_RTOL}), gradients max rel err {err:.3e} ({worst}; "
+          f"limit {REMAT_GRAD_RTOL})")
+    check(dl <= REMAT_LOSS_RTOL and err <= REMAT_GRAD_RTOL,
+          "remat on vs off")
+
+
+def profile_train(data, buckets, profile, card_line):
+    """--profile: a torch.profiler table of one training step of the large
+    bucket (dropout on), fp32 and bf16, beside PATH, against the median of
+    three unprofiled runs of the same step (the same seeds, so the same
+    recycle count)."""
+    for what, kw in (("fp32", {}), ("bf16", {"bf16": True})):
+        cfg = preset("fabind", **kw, **SMOKE_SHAPES)
+        batch, cfg_b = first_batch(data, cfg, buckets,
+                                   bucket_label(buckets[-1]))
+        tr = Trainer(cfg, "cuda")
+
+        def step():
+            tr.step = 0
+            tr.train_step(batch, cfg_b)
+
+        with TrainProbe() as probe:
+            for _ in range(4):
+                step()
+        ms = statistics.median(r["s"] * 1e3 for r in probe.steps[1:])
+        out = Path(profile)
+        out = out.with_name(f"{out.stem}_train_{what}{out.suffix}")
+        profile_batch(step, str(out), ms,
+                      f"train step {what} bucket {bucket_label(buckets[-1])} "
+                      f"({probe.steps[0]['recycles']} docking recycles)",
+                      card_line)
+
+
+def params_moved(out, cfg) -> float:
+    """Largest change of a weight between the seeded init and the run's
+    latest checkpoint."""
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(cfg.train.seed))
+    state, _ = TrainCheckpointer(str(Path(out) / "ckpt")).restore()
+    return max(float((state["model"][k] - v).abs().max())
+               for k, v in model.state_dict().items())
+
+
+def train_phase(raws, card_line, serve_ms, profile=None):
+    """Phase 7: training on the card through cli.train. Returns the gate
+    launches by bucket of the fp32 and the bf16 run, by dtype."""
+    t_phase = time.perf_counter()
+    data = write_npz_dir(raws, TRAIN_ROOT / "data")
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    buckets = resolve_buckets(BUCKETS, cfg)
+    trainer_checks(data, buckets, card_line)
+    if profile:
+        profile_train(data, buckets, profile, card_line)
+
+    # the main path: fp32, two epochs, evaluation at stages 1 and 2 after
+    # each, checkpoints; the counts set to 0 just before, read just after
+    out = TRAIN_ROOT / "fp32"
+    shutil.rmtree(out, ignore_errors=True)
+    held = reset_peak()
+    with TrainProbe() as full:
+        edge_gate.KERNEL.launches = 0
+        train_cli(data, out)
+        launches = edge_gate.KERNEL.launches
+    peak = {"fp32": (torch.cuda.max_memory_allocated(), held)}
+    check_steps(full, "fp32")
+    check(launches == sum(full.launches_by_bucket().values()) > 0,
+          f"fp32 training: gate launches {launches} outside the steps")
+    moved = params_moved(out, cfg)
+    check(moved > 0, "training moved the parameters")
+    evals = {(r["stage"], r["label"]) for r in full.evals}
+    check({s for s, _ in evals} == {1, 2}, "evaluation at stages 1 and 2")
+    print(f"train fp32 {len(full.steps)} steps: gate launches {launches} "
+          f"(train steps {sum(r['launches'] for r in full.steps)}, eval "
+          f"{sum(r['launches'] for r in full.evals)} in {len(full.evals)} "
+          f"batches), parameters moved up to {moved:.3e}; losses "
+          f"{[round(r['metrics']['loss'], 3) for r in full.steps]}")
+    report_run(full, out, "fp32", card_line)
+    with open(out / "metrics.jsonl") as f:
+        valid = [json.loads(line) for line in f]
+    for r in valid:
+        if r["phase"].startswith("valid_stage"):
+            print(f"train eval {r['phase']} step {r['step']}: rmsd_mean "
+                  f"{r['rmsd_mean']:.3f}, pocket_center_avg_dist "
+                  f"{r['pocket_center_avg_dist']:.3f}, n {r['n']}")
+
+    # preempted by SIGTERM in step 3, then resumed: the later steps are the
+    # unbroken run's (same batches; losses within RESUME_LOSS_RTOL)
+    out = TRAIN_ROOT / "resume"
+    shutil.rmtree(out, ignore_errors=True)
+
+    def stop(step, metrics, meta):
+        if step == STOP_AT_STEP:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    train_cli(data, out, on_step=stop)
+    ck = TrainCheckpointer(str(out / "ckpt"))
+    check(ck.latest_step() == STOP_AT_STEP,
+          f"preemption checkpoint at step {ck.latest_step()}")
+    stop_meta = ck.restore()[1]
+    resumed = {}
+    train_cli(data, out, "--resume",
+              on_step=lambda s, m, meta: resumed.setdefault(
+                  s, (m, meta["pdb"])))
+    unbroken = {i + 1: r["metrics"] for i, r in enumerate(full.steps)}
+    check(sorted(resumed) == [s for s in sorted(unbroken)
+                              if s > STOP_AT_STEP],
+          f"resumed steps {sorted(resumed)}")
+    worst = max(abs(m["loss"] - unbroken[s]["loss"]) / abs(unbroken[s]["loss"])
+                for s, (m, _) in resumed.items())
+    print(f"train SIGTERM at step {STOP_AT_STEP}, checkpoint meta "
+          f"{stop_meta}, resumed steps {sorted(resumed)}: loss max rel "
+          f"diff to the unbroken run {worst:.3e} (limit {RESUME_LOSS_RTOL})")
+    check(worst <= RESUME_LOSS_RTOL, "resumed steps equal the unbroken run's")
+
+    # bf16, and bf16 with remat: times and peak memory
+    runs = {}
+    for what, extra in (("bf16", ["--bf16"]),
+                        ("bf16 remat", ["--bf16", "--remat"])):
+        out = TRAIN_ROOT / what.replace(" ", "_")
+        shutil.rmtree(out, ignore_errors=True)
+        torch.cuda.empty_cache()
+        held = reset_peak()
+        with TrainProbe() as probe:
+            edge_gate.KERNEL.launches = 0
+            train_cli(data, out, "--eval-every", "0", *extra)
+        peak[what] = (torch.cuda.max_memory_allocated(), held)
+        check_steps(probe, what)
+        report_run(probe, out, what, card_line, serve_ms)
+        runs[what] = probe
+    l16, l32 = (runs["bf16"].steps[0]["metrics"]["loss"],
+                full.steps[0]["metrics"]["loss"])
+    print(f"train bf16 vs fp32 first step loss {l16:.4f} vs {l32:.4f} (rel "
+          f"{abs(l16 - l32) / abs(l32):.3e}, limit {BF16_LOSS_RTOL})")
+    check(abs(l16 - l32) <= BF16_LOSS_RTOL * abs(l32), "bf16 loss vs fp32")
+    for what, (top, held) in peak.items():
+        print(f"peak device memory train {what} (two epochs, batch {BATCH}): "
+              f"{top / 2**30:.2f} GiB, of which {held[0] / 2**30:.2f} GiB "
+              f"allocated when it began (after a cyclic collection that "
+              f"freed {held[1] / 2**30:.2f} GiB) [{card_line}]")
+
+    # FABind+: a short bf16 run over requests with isomorphisms
+    data_plus = write_npz_dir(raws, TRAIN_ROOT / "data_plus",
+                              isomorphisms=True)
+    out = TRAIN_ROOT / "plus"
+    shutil.rmtree(out, ignore_errors=True)
+    with TrainProbe() as probe:
+        edge_gate.KERNEL.launches = 0
+        train_cli(data_plus, out, "--bf16", preset_name="fabind_plus",
+                  epochs=1)
+    check_steps(probe, "fabind_plus", eval_launches=0)
+    check(edge_gate.KERNEL.launches == 0, "fabind_plus launched the gate")
+    moved = params_moved(out, preset("fabind_plus", **SMOKE_SHAPES))
+    check(moved > 0, "fabind_plus training moved the parameters")
+    print(f"train fabind_plus bf16 {len(probe.steps)} steps: losses "
+          f"{[round(r['metrics']['loss'], 3) for r in probe.steps]}, gate "
+          f"launches 0, parameters moved up to {moved:.3e}")
+    report_run(probe, out, "fabind_plus bf16", card_line)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    print(f"time phase 7 (training) wall: {time.perf_counter() - t_phase:.1f} "
+          f"s [{card_line}]")
+    return {torch.float32: full.launches_by_bucket(),
+            torch.bfloat16: runs["bf16"].launches_by_bucket()}
+
+
+def time_kernel_rows(served, max_err, launches, train_launches, sms,
+                     clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
-    per batch, with this run's launch counts."""
+    per batch, with the serving path's launch counts; and one per (dtype,
+    bucket) of the training path (its batches have the served shapes), with
+    its launch counts."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -826,14 +1298,16 @@ def time_kernel_rows(served, max_err, launches, sms, clock_hz, card_line):
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, "
                   f"MUFU floor {f_ms:.4f} ms; device time per batch "
                   f"{k_ms * n:.4f} ms [{card_line}]")
-            rows.append({
-                "name": f"edge_gate {tag} bucket {label}", "route": "cuda",
-                "source": "fabind_tpu_torch/csrc/edge_gate.cu",
-                "replaces": "fabind_tpu/ops/pallas/edge_gate.py:63",
-                "launches": launches[dtype].get(label, 0),
-                "max_abs_err": max_err[(dtype, label)],
-                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-                "bound_by": "operations", "library_ms": None})
+            for path, counts in (("", launches), ("train ", train_launches)):
+                rows.append({
+                    "name": f"edge_gate {path}{tag} bucket {label}",
+                    "route": "cuda",
+                    "source": "fabind_tpu_torch/csrc/edge_gate.cu",
+                    "replaces": "fabind_tpu/ops/pallas/edge_gate.py:63",
+                    "launches": counts[dtype].get(label, 0),
+                    "max_abs_err": max_err[(dtype, label)],
+                    "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                    "bound_by": "operations", "library_ms": None})
     for name, B, D, N, H, _ in SINGLE_SHAPES:
         a = gate_inputs(B, D, N, H, torch.float32)
         t_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
@@ -849,11 +1323,13 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="PATH",
                     help="write a torch.profiler table of one bf16 batch "
-                         "of each bucket beside PATH")
+                         "of each bucket, and of one training step in fp32 "
+                         "and bf16, beside PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
 
     # ---- 1. card and build
     card_line, clock_hz = card()
@@ -928,11 +1404,9 @@ def main(argv=None) -> int:
     http_round_trip(engine, raws[:BATCH])
 
     # ---- 4a. times, bf16 engine
-    torch.cuda.reset_peak_memory_stats()
+    held = reset_peak()
     lat16, syncs = time_engine(engine, batches, raws, "bf16", card_line)
-    print(f"peak device memory bf16 engine (timed batches and dock_raw): "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card_line}]")
+    print_peak("bf16 engine (timed batches and dock_raw)", held, card_line)
     if args.profile:
         profile_engine(syncs, lat16, args.profile, "", card_line)
     del syncs
@@ -962,11 +1436,9 @@ def main(argv=None) -> int:
     print(f"fp32 batch bucket {label}, kernel vs plain gate: max coordinate "
           f"difference {diff:.3e} A (tolerance {POSE_TOL_A} A)")
     check(diff <= POSE_TOL_A, f"kernel vs plain pose difference {diff}")
-    torch.cuda.reset_peak_memory_stats()
+    held = reset_peak()
     time_engine(engine, batches, raws, "fp32", card_line)
-    print(f"peak device memory fp32 engine (timed batches and dock_raw): "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
-          f"[{card_line}]")
+    print_peak("fp32 engine (timed batches and dock_raw)", held, card_line)
     del engine, batches
     torch.cuda.empty_cache()
 
@@ -975,9 +1447,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     best_of_phase(raws, buckets, card_line)
 
+    # ---- 7. training
+    torch.cuda.empty_cache()
+    train_launches = train_phase(raws, card_line, lat16, args.profile)
+
     # ---- 4b. kernel times
-    rows = time_kernel_rows(served, max_err, main_launches, sms, clock_hz,
-                            card_line)
+    rows = time_kernel_rows(served, max_err, main_launches, train_launches,
+                            sms, clock_hz, card_line)
+    print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
+          f"[{card_line}]")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -1011,9 +1489,9 @@ def print_sass_mufu(lib_path) -> None:
 
 def profile_batch(sync_batch, path: str, batch_ms: float, what: str,
                   card_line: str) -> None:
-    """Device time by kernel over one docking batch, written to `path`, and
-    a summary line: device busy time against the (unprofiled) median batch
-    time, and the matrix products' share, FLOPs and rate."""
+    """Device time by kernel over one batch (or training step), written to
+    `path`, and a summary line: device busy time against the (unprofiled)
+    median time, and the matrix products' share, FLOPs and rate."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -87,7 +87,7 @@ class ModelConfig:
     dropout: float = 0.1
     # rematerialize each EGNN layer in the backward pass: cuts the dominant
     # training residuals ([B,N,K,C] ctx gathers + pair activations, one per
-    # layer) at the cost of one recomputed forward (training slice)
+    # layer) at the cost of one recomputed forward (torch.utils.checkpoint)
     remat: bool = False
     geometry_reg_step_size: float = 0.001
     geom_reg_steps: int = 1

@@ -1,12 +1,12 @@
 """Host-side sample construction + fixed-shape collation (numpy).
 
 Own copy of fabind_tpu/data/batching.py: `build_sample` turns one raw
-complex into unpadded arrays in the protein-mean frame, `collate` pads and
-stacks samples into the FABindBatch field arrays. Branches the inference
-path does not reach raise NotImplementedError and name the slice that ports
-them: train-time torsion noise, the geometric (non-ESM) protein features.
-The C collator of the JAX package (fabind_tpu/data/native.py) is ported with
-the training data loader.
+complex into unpadded arrays in the protein-mean frame (for the train group
+with the noisy pocket crop, torsion noise and a random rotation),
+`collate` pads and stacks samples into the FABindBatch field arrays. The
+geometric (non-ESM) protein features raise NotImplementedError: they are
+ported with the featurization slice, as is the JAX package's C collator
+(fabind_tpu/data/native.py).
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from fabind_tpu_torch.config import FABindConfig
+from fabind_tpu_torch.data.torsion import randomize_torsions
 
 
 class SampleTooLarge(ValueError):
@@ -112,9 +113,8 @@ def build_sample(raw: Dict[str, np.ndarray], cfg: FABindConfig,
     # every rotatable torsion of the conformer before rotation/placement
     rk = rdkit_coords
     if t.train_ligand_torsion_noise and group == "train":
-        raise NotImplementedError(
-            "train-time ligand torsion noise (fabind_tpu/data/torsion.py) "
-            "is ported with the training slice")
+        rk = randomize_torsions(rk, np.asarray(raw["bond_edges"]), rng,
+                                bond_orders=raw.get("bond_orders"))
 
     # ligand init modes (utils.py:302-325); released configs use
     # pocket_center_rdkit. train group applies a uniform random rotation

@@ -3,10 +3,11 @@
 Counterpart of fabind_tpu/models/att_model.py: `n_iter` recycles, the first
 n_iter - 1 without gradient and the last with it; only the movable nodes
 (glb_c, ligand, glb_p) carry coordinate updates across rounds. A stochastic
-forward (inside `layers.dropout_rng`) with cfg.random_n_iter runs a count
-drawn uniformly from 1..n_iter, as the JAX package's non-deterministic
-forward does. The explicit pair embedding is built once per forward from the
-entry node embeddings.
+forward (inside `layers.dropout_rng`: sampling passes and the training
+forward) with cfg.random_n_iter runs a count drawn uniformly from 1..n_iter,
+as the JAX package's non-deterministic forward does; its rounds without
+gradient keep dropout on. The explicit pair embedding is built once per
+forward from the entry node embeddings.
 """
 from __future__ import annotations
 
@@ -55,10 +56,6 @@ class EfficientMCAttModel(nn.Module):
         """x: [B, N, 3] normalized complex coords; h: [B, N, embed_size].
         ctx_k overrides the ctx graph's K (a shape bucket's). Returns
         (x_out, h_out, pair_embed_out)."""
-        if self.training and self.cfg.random_n_iter and n_iter is None:
-            raise NotImplementedError(
-                "random recycle counts (training) are ported with the "
-                "training slice")
         host_rng = active_host_rng()
         if n_iter is None and self.cfg.random_n_iter and host_rng is not None:
             n_iter = int(torch.randint(1, self.n_iter + 1, (),

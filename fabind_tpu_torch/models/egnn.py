@@ -6,7 +6,10 @@ Counterpart of fabind_tpu/models/egnn.py:
   radial term; the two global tokens are aggregated in a dense side branch.
 - `InterAttention`: dense masked bipartite attention between ligand and
   pocket; its coordinate gate runs through the edge-gate kernel.
-- `MCAttEGNN`: the layer stack with the in-loop LAS projection.
+- `MCAttEGNN`: the layer stack with the in-loop LAS projection. Each EGCL
+  and InterAttention draws its dropout masks from a generator of its own,
+  and with cfg.remat is recomputed in the backward (torch.utils.checkpoint),
+  as the JAX package's `nn.remat` layers are.
 
 All coordinates here are normalized (divided by coordinate_scale).
 """
@@ -17,10 +20,12 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.models.cross_att import CrossAttentionModule
-from fabind_tpu_torch.models.layers import Dropout, MLPBlock
+from fabind_tpu_torch.models.layers import (Dropout, MLPBlock, dropout_rng,
+                                            layer_seed)
 from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, safe_sqrt
 
@@ -329,6 +334,29 @@ class MCAttEGNN(nn.Module):
         self.dropout_out = Dropout(cfg.dropout)
         self.linear_out = nn.Linear(hidden, out_dim)
 
+    def _run_layer(self, layer: nn.Module, *args):
+        """One EGCL or InterAttention call. With dropout on, the layer draws
+        its masks from a generator of its own, built from a seed drawn here
+        (before the layer runs), so a recomputation in the backward rebuilds
+        it and draws the forward's masks: torch.utils.checkpoint restores
+        the global RNG state, not an explicit generator's. With cfg.remat,
+        while gradients are recorded, the layer keeps only its inputs and
+        is recomputed in the backward (jax.checkpoint's trade: one more
+        forward of the layer for O(n_layers) fewer live activations)."""
+        seed = layer_seed() if self.cfg.dropout > 0 else None
+        device = args[0].device
+
+        def run(*a):
+            g = (None if seed is None
+                 else torch.Generator(device).manual_seed(seed))
+            with dropout_rng(g):
+                return layer(*a)
+
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(run, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return run(*args)
+
     def forward(self, h: Tensor, x: Tensor, gi: GraphInputs,
                 pair_embed: Tensor, pair_mask: Tensor, intra_cutoff: float,
                 inter_cutoff: float, ctx_k: int):
@@ -350,10 +378,12 @@ class MCAttEGNN(nn.Module):
         adj = G.build_inter_graph(x, layout, gi.lig_mask, gi.pkt_mask,
                                   inter_cutoff).adj
         for i in range(self.n_layers):
-            h, x_new = self._modules[f"gcl_{i}"](h, x, ctx, gi)
+            h, x_new = self._run_layer(self._modules[f"gcl_{i}"], h, x, ctx,
+                                       gi)
             x = maybe_fix(x, x_new)
-            h, x_new, pair_new = self._modules[f"att_{i}"](
-                h, x, adj, gi, pair_embed, pair_mask)
+            h, x_new, pair_new = self._run_layer(
+                self._modules[f"att_{i}"], h, x, adj, gi, pair_embed,
+                pair_mask)
             # FABind+ threads the updated pair embedding through the stack;
             # base discards it, so every layer biases off the entry pair
             if cfg.is_plus:
@@ -366,7 +396,7 @@ class MCAttEGNN(nn.Module):
                     steps=cfg.geom_reg_steps)
                 x = layout.with_lig(x, x_l)
 
-        h, x_new = self.out_layer(h, x, ctx, gi)
+        h, x_new = self._run_layer(self.out_layer, h, x, ctx, gi)
         x = maybe_fix(x, x_new)
         h = self.linear_out(self.dropout_out(h))
         return h, x, pair_embed

@@ -1,14 +1,15 @@
 """FABind and FABind+ top-level models (two stages: pocket prediction, then
 docking).
 
-Counterpart of fabind_tpu/models/fabind.py for inference: pocket prediction
-over the whole protein, the rounded pocket center, the radius crop packed
-into the Np pocket slots, and docking through the complex model. The base
-model works in the protein-mean frame end to end; FABind+ crops at its
-predicted radius, docks in the pocket's frame and adds the pocket center
+Counterpart of fabind_tpu/models/fabind.py: pocket prediction over the
+whole protein, the pocket center, the radius crop packed into the Np pocket
+slots, and docking through the complex model; the eval forward (stages 1
+and 2), inference, and the training forward (`forward(batch, train=True)`,
+inside `layers.dropout_rng`) with its gumbel-softmax center and stage gate.
+The base model works in the protein-mean frame end to end; FABind+ crops at
+its predicted radius, docks in the pocket's frame and adds the pocket center
 back, so both return coordinates in the protein-mean frame. Module names are
-the torch reference's, so released state dicts load with strict=True. The
-training forward is ported in a later slice.
+the torch reference's, so released state dicts load with strict=True.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ from fabind_tpu_torch.config import ModelConfig, ShapeConfig
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models.att_model import EfficientMCAttModel
 from fabind_tpu_torch.models.egnn import GraphInputs
-from fabind_tpu_torch.models.layers import MLPBlock, TransitionDiffOutDim
+from fabind_tpu_torch.models.layers import (MLPBlock, TransitionDiffOutDim,
+                                            active_dropout_rng,
+                                            active_host_rng)
 from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, pairwise_dist
 from fabind_tpu_torch.ops.gumbel import (pocket_center_from_cls,
@@ -38,12 +41,16 @@ PocketOut = Tuple[Tensor, Tensor, Tensor, Tensor]
 @dataclass
 class FABindOutput:
     coords: Tensor             # [B, Nc, 3] predicted ligand coords
+    lig_mask: Tensor           # [B, Nc]
     y_pred: Tensor             # [B, Np, Nc] distance-map head
     y_pred_by_coord: Tensor    # [B, Np, Nc] distances from predicted coords
     dis_map_target: Tensor     # [B, Np, Nc] regression target
     pair_valid: Tensor         # [B, Np, Nc]
     pocket_cls_logits: Tensor  # [B, Nr]
+    pocket_cls_label: Tensor   # [B, Nr]
+    prot_mask: Tensor          # [B, Nr]
     pred_pocket_center: Tensor  # [B, 3]
+    use_stage2: bool           # the predicted pocket fed the docking model
     keep_less_5: Tensor        # [B] predicted crop had <5 residues
     pocket_overflow: Tensor    # [B] residues dropped by the Np bucket
     ctx_overflow: Tensor       # [B] radius edges dropped by the ctx table
@@ -195,43 +202,78 @@ class FABind(nn.Module):
         return idx, mask, less5, overflow
 
     # --------------------------------------------------------------- forward
-    def forward(self, batch: FABindBatch, stage: int = 2) -> FABindOutput:
-        """Eval forward: stage 1 docks into the precomputed pocket crop,
-        stage 2 into the predicted one."""
-        self._check_supported()
-        shapes = self.shapes
+    def forward(self, batch: FABindBatch, stage: int = 2,
+                train: Optional[bool] = None,
+                shapes: Optional[ShapeConfig] = None,
+                gumbel_u: Optional[Tensor] = None) -> FABindOutput:
+        """The forward the losses read, in the shape bucket `shapes`
+        (default self.shapes).
+
+        Eval (train False; default when not self.training): stage 1 docks
+        into the precomputed pocket crop, stage 2 into the predicted one.
+
+        Training (train True; default in .train() mode) runs inside
+        `layers.dropout_rng(generator)`, which gives the dropout masks, the
+        recycle counts and the gumbel-softmax uniforms (or pass them as
+        `gumbel_u` [B, Nr, 2]). FABind+ always docks into the precomputed
+        crop (teacher forcing). Base docks into the predicted crop when a
+        coin drawn on the host is below cfg.stage_prob and the mean center
+        error over all B rows is below cfg.center_dist_threshold, as the
+        JAX package's gate; the gate is decided on the host, so the step
+        reads the center error back (one device sync, only when the coin
+        falls below stage_prob) and docks once instead of selecting
+        between two candidates."""
+        cfg = self.cfg
+        shapes = shapes or self.shapes
+        train = self.training if train is None else train
+        if train and active_dropout_rng() is None:
+            raise RuntimeError(
+                "the training forward draws its dropout masks and gumbel "
+                "noise from layers.dropout_rng(generator); run it inside one")
         compound_out, protein_out, cls_logits, radius_pred = \
             self._pocket_pred(batch, shapes)
-        cfg = self.cfg
         pred_center = pocket_center_from_cls(
             cls_logits, batch.prot_xyz, batch.prot_mask, cfg.gs_tau,
-            cfg.gs_hard)
+            cfg.gs_hard, generator=active_dropout_rng() if train else None,
+            u=gumbel_u if train else None)
+
+        if train and not cfg.is_plus:
+            coin = float(torch.rand((), generator=active_host_rng()))
+            use_stage2 = coin < cfg.stage_prob and float(torch.linalg.norm(
+                (batch.coords_center - pred_center).detach(), dim=-1).mean()
+            ) < cfg.center_dist_threshold
+        else:
+            use_stage2 = not train and stage == 2
+
         B = batch.batch_size
-        if stage == 2:
+        if use_stage2:
+            center = pred_center
+            if train and cfg.train_pred_pocket_noise > 0:
+                center = center + cfg.train_pred_pocket_noise * (
+                    2 * torch.rand(center.shape, generator=active_dropout_rng(),
+                                   device=center.device,
+                                   dtype=center.dtype) - 1)
             pkt_idx, pkt_mask, keep_less_5, overflow = self._predicted_crop(
-                pred_center.detach(), batch, shapes,
-                self._crop_radius(radius_pred))
+                center.detach(), batch, shapes, self._crop_radius(radius_pred))
         else:
             pkt_idx, pkt_mask = batch.pocket_idx, batch.pocket_mask
             keep_less_5 = torch.zeros(B, dtype=torch.bool,
                                       device=pkt_idx.device)
             overflow = torch.zeros(B, dtype=torch.long, device=pkt_idx.device)
         out = self._dock(batch, compound_out, protein_out, pkt_idx, pkt_mask,
-                         stage == 2, shapes.ctx_k)
+                         use_stage2, shapes.ctx_k)
         (coords, y_pred, y_by_coord, dis_map, pair_valid, confidence,
          ctx_overflow) = out
         return FABindOutput(
-            coords=coords, y_pred=y_pred, y_pred_by_coord=y_by_coord,
-            dis_map_target=dis_map, pair_valid=pair_valid,
-            pocket_cls_logits=cls_logits, pred_pocket_center=pred_center,
-            keep_less_5=keep_less_5, pocket_overflow=overflow,
-            ctx_overflow=ctx_overflow, pkt_idx=pkt_idx, pkt_mask=pkt_mask,
+            coords=coords, lig_mask=batch.lig_mask, y_pred=y_pred,
+            y_pred_by_coord=y_by_coord, dis_map_target=dis_map,
+            pair_valid=pair_valid, pocket_cls_logits=cls_logits,
+            pocket_cls_label=batch.pocket_label.to(cls_logits.dtype),
+            prot_mask=batch.prot_mask, pred_pocket_center=pred_center,
+            use_stage2=use_stage2, keep_less_5=keep_less_5,
+            pocket_overflow=overflow, ctx_overflow=ctx_overflow,
+            pkt_idx=pkt_idx, pkt_mask=pkt_mask,
             pocket_radius_pred=radius_pred, confidence=confidence)
-
-    def _check_supported(self):
-        if self.training:
-            raise NotImplementedError(
-                "the training forward is ported with the training slice")
 
     # --------------------------------------------------------------- docking
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
@@ -332,7 +374,6 @@ class FABind(nn.Module):
         (no-random gumbel fallback) unless `center_override` is given; the
         predicted crop; docking. Returns (coords [B,Nc,3], confidence [B]
         (zeros without a confidence head), pocket_overflow [B])."""
-        self._check_supported()
         cfg = self.cfg
         shapes = shapes or self.shapes
         if pocket is None:

@@ -27,7 +27,8 @@ _STOCHASTIC = threading.local()
 
 
 @contextlib.contextmanager
-def dropout_rng(generator: torch.Generator) -> Iterator[torch.Generator]:
+def dropout_rng(generator: Optional[torch.Generator]
+                ) -> Iterator[Optional[torch.Generator]]:
     """Run the forwards of the block stochastically in the current thread,
     as the JAX package's `deterministic=False`: every Dropout draws its mask
     from `generator` (on the device of the tensors it masks), and with
@@ -35,10 +36,12 @@ def dropout_rng(generator: torch.Generator) -> Iterator[torch.Generator]:
     CPU generator seeded with `generator`'s seed (the host needs the count
     to launch the loop, and reading it from the device would wait for the
     device). Other threads are unaffected, so concurrent calls on one shared
-    module (the serving engine's) keep their deterministic forwards."""
+    module (the serving engine's) keep their deterministic forwards. None
+    runs the block deterministically."""
     prev = getattr(_STOCHASTIC, "rngs", None)
-    host = torch.Generator().manual_seed(generator.initial_seed())
-    _STOCHASTIC.rngs = (generator, host)
+    host = (None if generator is None
+            else torch.Generator().manual_seed(generator.initial_seed()))
+    _STOCHASTIC.rngs = None if generator is None else (generator, host)
     try:
         yield generator
     finally:
@@ -58,11 +61,25 @@ def active_host_rng() -> Optional[torch.Generator]:
     return None if rngs is None else rngs[1]
 
 
+def layer_seed() -> Optional[int]:
+    """A seed for one layer's own dropout generator, drawn on the host from
+    the current thread's stochastic forward (None in a deterministic one).
+    A layer that is recomputed in the backward (torch.utils.checkpoint)
+    rebuilds its generator from the seed, so the recomputation draws the
+    masks of the forward: checkpoint restores the global RNG state, not an
+    explicit generator's."""
+    host = active_host_rng()
+    if host is None:
+        return None
+    return int(torch.randint(0, 2**62, (), generator=host))
+
+
 class Dropout(nn.Module):
     """Inverted dropout, on exactly inside a `dropout_rng` block: elements
     are kept with probability 1 - rate and scaled by 1 / (1 - rate), as
-    flax's nn.Dropout. `.train()` does not turn it on (the training forward
-    is ported with the training slice)."""
+    flax's nn.Dropout. `.train()` alone does not turn it on: a module in
+    training mode raises outside a `dropout_rng` block, so a training
+    forward never runs without its masks."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -73,9 +90,10 @@ class Dropout(nn.Module):
         return self.rate > 0 and active_dropout_rng() is not None
 
     def forward(self, x: Tensor) -> Tensor:
-        if self.training and self.rate > 0:
-            raise NotImplementedError(
-                "the training forward is ported with the training slice")
+        if self.training and self.rate > 0 and not self.active:
+            raise RuntimeError(
+                "Dropout in training mode draws its masks from "
+                "layers.dropout_rng(generator); run the forward inside one")
         if not self.active:
             return x
         keep = torch.rand(x.shape, generator=active_dropout_rng(),

@@ -1,4 +1,6 @@
-"""Geometric primitives: safe division, pairwise distances, LAS projection.
+"""Geometric primitives: safe division, masked means, pairwise distances,
+the LAS projection, and the per-sample RMSD and centroid distance the losses
+report.
 
 Counterpart of fabind_tpu/ops/geometry.py. n_channel is 1 throughout the
 FABind family, so radial is the scalar squared distance per edge.
@@ -48,3 +50,25 @@ def pairwise_dist(a: Tensor, b: Tensor) -> Tensor:
     """[..., M, 3] x [..., N, 3] -> [..., M, N] Euclidean distances."""
     d2 = ((a[..., :, None, :] - b[..., None, :, :]) ** 2).sum(-1)
     return safe_sqrt(d2)
+
+
+def masked_mean(v: Tensor, mask: Tensor, dim=None) -> Tensor:
+    """Mean of v over the True entries of mask along `dim` (all dims when
+    None); 0 where the mask is empty."""
+    m = mask.to(v.dtype)
+    if dim is None:
+        return safe_div((v * m).sum(), m.sum())
+    return safe_div((v * m).sum(dim), m.sum(dim))
+
+
+def rmsd(pred: Tensor, true: Tensor, mask: Tensor) -> Tensor:
+    """Per-sample ligand RMSD [B] from [B, Nc, 3] coords and mask [B, Nc]."""
+    return torch.sqrt(masked_mean(((pred - true) ** 2).sum(-1), mask, dim=1))
+
+
+def centroid_dist(pred: Tensor, true: Tensor, mask: Tensor) -> Tensor:
+    """Per-sample distance [B] between the masked centroids."""
+    m = mask[..., None].to(pred.dtype)
+    den = m.sum(1).clamp(min=1.0)
+    return torch.linalg.norm((pred * m).sum(1) / den - (true * m).sum(1) / den,
+                             dim=-1)

@@ -93,78 +93,96 @@ def _poses_json(poses) -> bytes:
     return json.dumps(out).encode()
 
 
+class _Server(ThreadingHTTPServer):
+    """The daemon's server: holds the engine and the request limits."""
+
+    def __init__(self, address, engine, max_inflight: int,
+                 max_body_bytes: int):
+        super().__init__(address, _Handler)
+        self.engine = engine
+        # the engine is thread-safe; the semaphore only bounds how many
+        # requests hold device batches at once (memory, not safety)
+        self.inflight = threading.Semaphore(max_inflight)
+        self.max_body_bytes = max_body_bytes
+
+
+class _Handler(BaseHTTPRequestHandler):
+    # reads the engine from its server: a handler class made per server,
+    # closing over the engine, would sit in a reference cycle and keep a
+    # closed server's engine (and its device weights) alive until Python's
+    # cyclic collector happened to run
+    server: _Server
+
+    def log_message(self, *a):   # quiet by default
+        pass
+
+    def _reply(self, code: int, body: bytes):
+        self.send_response(code)
+        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Length", str(len(body)))
+        self.end_headers()
+        self.wfile.write(body)
+
+    def _error(self, code: int, msg: str):
+        self._reply(code, json.dumps({"error": msg}).encode())
+
+    def do_GET(self):
+        if self.path != "/health":
+            return self._error(404, "not found")
+        engine = self.server.engine
+        self._reply(200, json.dumps({
+            "status": "ok", "batch_size": engine.batch_size,
+            "bf16": engine.bf16,
+            "buckets": [[c.shapes.max_ligand, c.shapes.max_pocket,
+                         c.shapes.max_protein]
+                        for c in engine.bucket_cfgs]}).encode())
+
+    def do_POST(self):
+        engine, inflight = self.server.engine, self.server.inflight
+        try:
+            n = int(self.headers.get("Content-Length", "0"))
+            if n > self.server.max_body_bytes:
+                # refused before it is read: a runaway client must not
+                # exhaust the host's memory
+                return self._error(
+                    413, f"body {n} bytes exceeds limit "
+                         f"{self.server.max_body_bytes}")
+            url = urlparse(self.path)
+            if url.path not in ("/dock_raw", "/screen", "/dock_best_of"):
+                return self._error(404, "not found")
+            reqs = _group_npz(self.rfile.read(n))
+            if url.path == "/dock_raw":
+                with inflight:
+                    poses = engine.dock_raw(reqs)
+            elif url.path == "/dock_best_of":
+                q = parse_qs(url.query)
+                kw = {k: int(q[k][0]) for k in ("sample_size", "seed")
+                      if k in q}
+                with inflight:
+                    poses = engine.dock_best_of(reqs, **kw)
+            else:
+                if not reqs or "protein_xyz" not in reqs[0]:
+                    return self._error(
+                        400, "screen needs a protein_xyz (+ esm_feat) "
+                             "entry and r{i}_-prefixed ligand entries")
+                protein = {k: reqs[0][k] for k in _PROTEIN_KEYS
+                           if k in reqs[0]}
+                ligs = [{k: v for k, v in r.items()
+                         if k not in _PROTEIN_KEYS} for r in reqs]
+                with inflight:
+                    poses = engine.dock_screen(protein, ligs)
+            self._reply(200, _poses_json(poses))
+        except Exception as e:   # per-request fault isolation
+            self._error(500, f"{type(e).__name__}: {e}")
+
+
 def make_server(engine, host: str = "127.0.0.1", port: int = 8400,
                 max_inflight: int = 4,
                 max_body_bytes: int = 256 * 1024 * 1024
                 ) -> ThreadingHTTPServer:
     """A ThreadingHTTPServer for `engine` (not started; port 0 picks a free
     one)."""
-    # the engine is thread-safe; the semaphore only bounds how many requests
-    # hold device batches at once (memory, not safety)
-    inflight = threading.Semaphore(max_inflight)
-
-    class Handler(BaseHTTPRequestHandler):
-        def log_message(self, *a):   # quiet by default
-            pass
-
-        def _reply(self, code: int, body: bytes):
-            self.send_response(code)
-            self.send_header("Content-Type", "application/json")
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def _error(self, code: int, msg: str):
-            self._reply(code, json.dumps({"error": msg}).encode())
-
-        def do_GET(self):
-            if self.path != "/health":
-                return self._error(404, "not found")
-            self._reply(200, json.dumps({
-                "status": "ok", "batch_size": engine.batch_size,
-                "bf16": engine.bf16,
-                "buckets": [[c.shapes.max_ligand, c.shapes.max_pocket,
-                             c.shapes.max_protein]
-                            for c in engine.bucket_cfgs]}).encode())
-
-        def do_POST(self):
-            try:
-                n = int(self.headers.get("Content-Length", "0"))
-                if n > max_body_bytes:
-                    # refused before it is read: a runaway client must not
-                    # exhaust the host's memory
-                    return self._error(
-                        413, f"body {n} bytes exceeds limit "
-                             f"{max_body_bytes}")
-                url = urlparse(self.path)
-                if url.path not in ("/dock_raw", "/screen", "/dock_best_of"):
-                    return self._error(404, "not found")
-                reqs = _group_npz(self.rfile.read(n))
-                if url.path == "/dock_raw":
-                    with inflight:
-                        poses = engine.dock_raw(reqs)
-                elif url.path == "/dock_best_of":
-                    q = parse_qs(url.query)
-                    kw = {k: int(q[k][0]) for k in ("sample_size", "seed")
-                          if k in q}
-                    with inflight:
-                        poses = engine.dock_best_of(reqs, **kw)
-                else:
-                    if not reqs or "protein_xyz" not in reqs[0]:
-                        return self._error(
-                            400, "screen needs a protein_xyz (+ esm_feat) "
-                                 "entry and r{i}_-prefixed ligand entries")
-                    protein = {k: reqs[0][k] for k in _PROTEIN_KEYS
-                               if k in reqs[0]}
-                    ligs = [{k: v for k, v in r.items()
-                             if k not in _PROTEIN_KEYS} for r in reqs]
-                    with inflight:
-                        poses = engine.dock_screen(protein, ligs)
-                self._reply(200, _poses_json(poses))
-            except Exception as e:   # per-request fault isolation
-                self._error(500, f"{type(e).__name__}: {e}")
-
-    return ThreadingHTTPServer((host, port), Handler)
+    return _Server((host, port), engine, max_inflight, max_body_bytes)
 
 
 def serve_forever(engine, host: str = "127.0.0.1", port: int = 8400) -> None:

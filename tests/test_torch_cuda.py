@@ -2,7 +2,9 @@
 its one-direction launch (phi_rank1) and its paired launch over both
 attention directions (phi_rank1_pair); and the serving engine on the card
 (bf16 against fp32, bucket routing, the protein-row cache, the launch count
-under threads; FABind+ against the CPU, seeded best-of-N sampling).
+under threads; FABind+ against the CPU, seeded best-of-N sampling); and a
+training step on the card against the same step on the CPU, with the gate's
+gradients at a docking training shape.
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -300,3 +302,64 @@ def test_dock_best_of_seeded_on_card(cuda):
             assert x.confidence == y.confidence
             diff.append(np.abs(x.coords - z.coords).max())
     assert max(diff) > 0
+
+
+# --------------------------------------------------------------- training
+def test_pair_kernel_gradients_at_training_shape(cuda):
+    """The gate's autograd.Function at the docking shape of a training
+    batch (B 8, 48 ligand x 160 pocket, H 512): the kernel forward and the
+    plain-VJP backward against autograd through the plain version."""
+    args = [t.requires_grad_() for t in _pair_inputs((8, 48, 160, 512),
+                                                     torch.float32, cuda)]
+    g = torch.Generator().manual_seed(3)
+    g_ab = torch.randn(8, 48, 160, generator=g).to(cuda)
+    g_ba = torch.randn(8, 160, 48, generator=g).to(cuda)
+
+    def grads(fn):
+        ab, ba = fn(*args)
+        return torch.autograd.grad((ab * g_ab).sum() + (ba * g_ba).sum(),
+                                   args)
+
+    before = edge_gate.KERNEL.launches
+    got = grads(phi_rank1_pair)
+    assert edge_gate.KERNEL.launches == before + 1
+    for a, b in zip(got, grads(phi_rank1_pair_reference)):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """A dropout-0 fp32 training step (released depth: 4 layers x 8
+    recycles, toy widths) on the card against the same step on the CPU:
+    the same loss and gradients within 1e-4 + 1e-4 * max|g| per tensor,
+    and the gate launched once per attention layer of the forward (33)."""
+    from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays
+    from fabind_tpu_torch.models.fabind import init_params, make_model
+    from fabind_tpu_torch.train.trainer import Trainer, step_generator
+
+    cfg = preset("fabind", **ENGINE_KW, dropout=0.0, random_n_iter=False,
+                 stage_prob=0.0)
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    arrays = dummy_arrays(cfg.shapes, batch_size=2, seed=0, n_lig_valid=12,
+                          n_prot_valid=40)
+    u = torch.rand(2, cfg.shapes.max_protein, 2,
+                   generator=torch.Generator().manual_seed(1)).clamp(min=1e-6)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, dev, state_dict=sd)
+        before = edge_gate.KERNEL.launches
+        m = tr._forward_loss(FABindBatch.from_numpy(arrays, dev), cfg,
+                             step_generator(0, 0, dev), u.to(dev))
+        res[dev] = (float(m["loss"].detach()),
+                    {n: p.grad.detach().cpu()
+                     for n, p in tr.model.named_parameters()
+                     if p.grad is not None},
+                    edge_gate.KERNEL.launches - before)
+    (l_cpu, g_cpu, n_cpu), (l_gpu, g_gpu, n_gpu) = res["cpu"], res["cuda"]
+    assert n_cpu == 0 and n_gpu == LAUNCHES_PER_BATCH
+    assert abs(l_gpu - l_cpu) <= 1e-4 * abs(l_cpu)
+    assert set(g_cpu) == set(g_gpu)
+    for n, g in g_cpu.items():
+        tol = 1e-4 + 1e-4 * float(g.abs().max())
+        assert float((g_gpu[n] - g).abs().max()) <= tol, n

@@ -21,7 +21,10 @@ def test_port_and_chip_smoke_import_no_jax():
     modules = sorted(m.name for m in pkgutil.walk_packages(
         fabind_tpu_torch.__path__, "fabind_tpu_torch."))
     for m in ("ops.edge_gate", "utils.precision", "data.buckets", "postopt",
-              "serve_http", "cli.serve", "sample"):
+              "serve_http", "cli.serve", "sample", "train.losses",
+              "train.schedule", "train.trainer", "train.checkpoints",
+              "data.torsion", "data.dataset", "utils.metrics",
+              "utils.logging_utils", "cli.train"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -43,3 +46,17 @@ def test_engine_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DockingEngine(cfg)
     assert DockingEngine(cfg, device="cpu").device.type == "cpu"
+
+
+def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
+    from fabind_tpu_torch.cli import train as cli_train
+    from fabind_tpu_torch.train.trainer import Trainer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli_train.main(["--data", str(tmp_path), "--output",
+                        str(tmp_path / "run")])
+    cfg = preset("fabind", max_ligand=8, max_pocket=16, max_protein=32,
+                 hidden_size=16, pocket_pred_hidden_size=16, mean_layers=1)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(cfg)
+    assert Trainer(cfg, "cpu").device.type == "cpu"

@@ -116,7 +116,8 @@ def test_pick_cluster_centers_match_jax():
 def test_dropout_only_inside_its_thread():
     """Dropout is the identity without a generator, drops close to its
     rate (kept values scaled by 1 / (1 - rate)) inside dropout_rng, draws
-    the same mask from the same seed, and stays off in another thread."""
+    the same mask from the same seed, and stays off in another thread; in
+    training mode it raises without a generator."""
     drop = Dropout(0.1).eval()
     x = torch.ones(200_000)
     assert drop(x) is x
@@ -137,9 +138,12 @@ def test_dropout_only_inside_its_thread():
     with dropout_rng(torch.Generator().manual_seed(3)):
         assert torch.equal(drop(x), y)
     assert drop(x) is x
+    # a module in training mode draws its masks only inside dropout_rng
     drop.train()
-    with pytest.raises(NotImplementedError, match="training"):
+    with pytest.raises(RuntimeError, match="dropout_rng"):
         drop(x)
+    with dropout_rng(torch.Generator().manual_seed(3)):
+        assert torch.equal(drop(x), y)
 
 
 # ----------------------------------------------------------- sample_poses

@@ -5,11 +5,13 @@ are held to the JAX package's (fabind_tpu.serve_http)."""
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
 import threading
 import urllib.error
 import urllib.request
+import weakref
 
 import numpy as np
 import pytest
@@ -181,6 +183,33 @@ def test_http_dock_best_of(monkeypatch):
             np.testing.assert_array_equal(c, w.coords)
             assert p["confidence"] == np.float32(w.confidence)
             assert w.confidence != 0.0
+
+
+def test_closed_server_releases_its_engine():
+    """After a request, shutdown and close, dropping the server and the
+    engine frees the engine's model at once: nothing of the daemon holds
+    it in a reference cycle that waits for Python's cyclic collector (on
+    the card that kept a closed daemon's weights on the device)."""
+    eng = DockingEngine(preset("fabind", **TINY), batch_size=2, device="cpu")
+    model = weakref.ref(eng.model)
+    srv = make_server(eng, "127.0.0.1", 0)
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    lig = make_raw(n=5, nr=20, seed=1)
+    gc.disable()
+    try:
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            assert r.status == 200
+        assert _post(base + "/dock_raw", _npz(
+            {f"r0_{k}": v for k, v in lig.items()}))[0] == 200
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=30)
+        del srv, eng, t
+        assert model() is None
+    finally:
+        gc.enable()
 
 
 def test_group_npz_and_poses_json_match_jax():
