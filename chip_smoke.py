@@ -9,8 +9,7 @@ Phases, each of which raises on failure (non-zero exit):
      gate's paired launch (both attention directions) at every shape the two
      served buckets launch it with, in fp32 and bf16, a ragged pair, H = 100
      and pre-activations up to +-100 (with w2 unscaled, held to float64 no
-     worse than the plain fp32 version); its one-direction launch at the
-     four one-direction shapes and a ragged one; both activations and both
+     worse than the plain fp32 version); both activations and the
      gradients at a small shape;
   3. the main path as it is deployed: `DockingEngine.dock_raw` at preset
      `fabind` full width, bf16, over two shape buckets, on 32 seeded
@@ -54,7 +53,25 @@ Phases, each of which raises on failure (non-zero exit):
      parameters and the optimizer bit for bit, remat on and off with dropout
      on, bf16 within 10% of fp32. Times: train step ms per bucket (fp32,
      bf16, bf16 with remat), samples/s over an epoch, peak device memory,
-     the phase's wall time.
+     the phase's wall time;
+  8. evaluation and confidence training, from phase 7's NPZ directory and
+     runs: `cli.evaluate.main` of the fp32 base run over all 32 complexes at
+     stages 2 and 1 (JAX's JSON keys, finite RMSDs, n = complexes less
+     dropped, 33 gate launches per batch and stage), again with the plain
+     gate (per-pdb RMSD within 0.01 A), with `--post-optim` (configuration
+     loss not raised) and with `--distmap-dock` (5000 steps, 2 restarts, on
+     one large-bucket batch: finite, the lowest-loss restart kept, the same
+     seed bit-identical); a bf16 Trainer's evaluation bit-equal to the fp32
+     model's forward on the fp32 batch; `cli.train_confidence.main` from the
+     FABind+ run with each pose source (5 copies, one epoch of 16
+     complexes: finite loss, the trunk bit-equal to the checkpoint, every
+     ranking tensor but the score's bias moved, no trunk gradient, JAX's
+     metric keys, no gate launch); `cli.sample.main` with the trained head
+     (16 complexes x 8 passes: the JSON's n and sample_size, one file per
+     pass with a line per complex, the same seed the same JSON). Times:
+     evaluation complexes/s, ms per batch of --post-optim and
+     --distmap-dock, confidence step ms and peak memory per pose source,
+     cli.sample complexes/s, the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -82,10 +99,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from fabind_tpu_torch.cli import evaluate as cli_evaluate
+from fabind_tpu_torch.cli import sample as cli_sample
 from fabind_tpu_torch.cli import train as cli_train
+from fabind_tpu_torch.cli import train_confidence as cli_train_confidence
 from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.data.batching import build_sample
-from fabind_tpu_torch.data.buckets import resolve_buckets, route_sample
+from fabind_tpu_torch.data.buckets import (resolve_buckets, route_sample,
+                                           sort_bucket_cfgs)
 from fabind_tpu_torch.data.dataset import Loader, open_source
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models import layers
@@ -101,8 +122,12 @@ from fabind_tpu_torch.sample import (dbscan_clusters, pass_generator,
                                      sample_poses)
 from fabind_tpu_torch.serve import DockingEngine
 from fabind_tpu_torch.serve_http import make_server
-from fabind_tpu_torch.train.checkpoints import TrainCheckpointer
-from fabind_tpu_torch.train.trainer import Trainer, step_generator
+from fabind_tpu_torch.train.checkpoints import (HEAD_PREFIXES,
+                                                TrainCheckpointer,
+                                                load_weights)
+from fabind_tpu_torch.train.confidence import METRIC_KEYS
+from fabind_tpu_torch.train.trainer import (Trainer, eval_forward,
+                                            step_generator)
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -127,15 +152,6 @@ N_SCREEN = 16
 POSTOPT_STEPS = 20
 DTYPES = (torch.bfloat16, torch.float32)
 PAIR_EXTRA = [("ragged", 2, 7, 11, 48, 0), ("H=100", 2, 13, 21, 100, 0)]
-# (name, B, D, N, H, launches per batch of the first port, one per
-# direction): the one-direction launch, phi_rank1
-SINGLE_SHAPES = [
-    ("pocket lig<-prot", BATCH, 48, 512, 128, 1),
-    ("pocket prot<-lig", BATCH, 512, 48, 128, 1),
-    ("dock lig<-pkt", BATCH, 48, 160, 512, 32),
-    ("dock pkt<-lig", BATCH, 160, 48, 512, 32),
-]
-RAGGED = ("ragged", 2, 7, 11, 48, 0)
 # the large-argument case: l1 uniform in [-100, 100]
 WIDE = 100.0
 # kernel vs plain: the sum over H runs in another order (fp32); bf16 output
@@ -183,6 +199,23 @@ REMAT_GRAD_RTOL = 1e-4
 RESUME_LOSS_RTOL = 1e-3
 # bf16 vs fp32 first-step loss (tests/test_train.py's bound)
 BF16_LOSS_RTOL = 0.1
+# evaluation and confidence (phase 8): the JAX evaluation CLI's JSON keys
+# (pocket_truncated_residues_max only when a crop was truncated); the
+# distance-map restarts (on one large-bucket batch); copies per complex in
+# confidence training; complexes and passes of cli.sample
+EVAL_KEYS = ({f"{p}_{s}" for p in ("rmsd", "centroid")
+              for s in ("mean", "25", "50", "75", "lt2", "lt5")}
+             | {"pocket_cls_accuracy", "pocket_center_avg_dist",
+                "pocket_center_mae", "pocket_center_rmse",
+                "pocket_center_dcc_lt4", "n", "pocket_truncated_samples",
+                "complexes_per_sec", "n_dropped_oversize"})
+DISTMAP_REPEATS = 2
+CONF_COPIES = 5
+N_SAMPLE = 16
+SAMPLE_PASSES = 8
+# the confidence score's output bias: a pure ranking loss sees score
+# differences only, so its gradient is 0 and it need not move
+SCORE_BIAS = "ranking_score_mlp.linear2.bias"
 
 
 def check(ok: bool, what: str) -> None:
@@ -240,12 +273,6 @@ def served_pair_shapes(cfg_b):
              m.hidden_size, m.mean_layers * m.n_iter)]
 
 
-def gate_inputs(B, D, N, H, dtype, seed=0):
-    g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(*s, generator=g).to("cuda", dtype)
-                 for s in ((B, N, H), (B, D, N), (H,), (H,)))
-
-
 def pair_inputs(B, Na, Nb, H, dtype, seed=0, wide=False, w_scale=1.0):
     """(l1_a, l1_b, r, u, w2 * w_scale); with `wide`, l1 uniform in
     [-WIDE, WIDE], so the pre-activations reach +-100."""
@@ -276,26 +303,24 @@ def cuda_time_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def gate_bound_ms(B, Na, Nb, H, pair=False, elem_bytes=4) -> float:
-    """Least time for one silu launch: bytes moved (inputs read once,
-    outputs written once, `elem_bytes` per element) over HBM bandwidth vs
-    the fp32 operations (per gate element: mul+add pre-activation, exp,
-    add, divide, multiply for silu, mul+add accumulation = 8; the kernel
-    computes in fp32 for bf16 inputs too) over the fp32 peak. One
-    direction: l1 [B,Nb,H], r [B,Na,Nb] -> [B,Na,Nb]; the pair adds l1_a
-    [B,Na,H] and the second output, and doubles the gate elements."""
-    dirs = 2 if pair else 1
-    nbytes = elem_bytes * (B * Nb * H + (pair and B * Na * H)
-                           + (1 + dirs) * B * Na * Nb + 2 * H)
-    ops = 8 * dirs * B * Na * Nb * H
+def gate_bound_ms(B, Na, Nb, H, elem_bytes=4) -> float:
+    """Least time for one paired silu launch: bytes moved (inputs read
+    once, outputs written once, `elem_bytes` per element: l1_a [B,Na,H],
+    l1_b [B,Nb,H], r [B,Na,Nb], u, w2 [H] in; phi_ab, phi_ba out) over HBM
+    bandwidth vs the fp32 operations (per gate element: mul+add
+    pre-activation, exp, add, divide, multiply for silu, mul+add
+    accumulation = 8, over 2 x B x Na x Nb x H elements; the kernel computes
+    in fp32 for bf16 inputs too) over the fp32 peak."""
+    nbytes = elem_bytes * (B * (Na + Nb) * H + 3 * B * Na * Nb + 2 * H)
+    ops = 8 * 2 * B * Na * Nb * H
     return max(nbytes / PEAK_BYTES_S, ops / PEAK_FP32_S) * 1e3
 
 
-def sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=False) -> float:
-    """Least time for one silu launch on the special-function units: two
-    MUFU operations per gate element at MUFU_PER_CLK_SM per SM per clock,
-    every SM at its maximum clock."""
-    elems = (2 if pair else 1) * B * Na * Nb * H
+def sfu_floor_ms(B, Na, Nb, H, sms, clock_hz) -> float:
+    """Least time for one paired silu launch on the special-function units:
+    two MUFU operations per gate element (2 x B x Na x Nb x H of them) at
+    MUFU_PER_CLK_SM per SM per clock, every SM at its maximum clock."""
+    elems = 2 * B * Na * Nb * H
     return elems * MUFU_PER_SILU / (MUFU_PER_CLK_SM * sms * clock_hz) * 1e3
 
 
@@ -366,24 +391,8 @@ def check_kernels(served) -> dict:
     check(errs[0] <= WIDE_ERR_RATIO * errs[1],
           f"edge_gate pair +-100 w2 unscaled: kernel error {errs[0]:.3e} vs "
           f"float64 above {WIDE_ERR_RATIO} x plain fp32's {errs[1]:.3e}")
-    for name, B, D, N, H, _ in SINGLE_SHAPES + [RAGGED]:
-        for dtype in DTYPES:
-            for act in ("silu", "relu"):
-                args = gate_inputs(B, D, N, H, dtype)
-                got = edge_gate.phi_rank1(*args, act=act)
-                torch.cuda.synchronize()
-                compare(got, edge_gate.phi_rank1_reference(*args, act=act),
-                        dtype, f"edge_gate {name} [{B},{D},{N},{H}] {act} "
-                        f"{str(dtype)[6:]}")
-    # gradients: the autograd.Functions' backward vs autograd through the
-    # plain versions
-    args = [t.requires_grad_() for t in gate_inputs(2, 7, 11, 48,
-                                                    torch.float32, seed=1)]
-    g = torch.randn(2, 7, 11, device="cuda")
-    got = torch.autograd.grad(edge_gate.phi_rank1(*args), args, g)
-    want = torch.autograd.grad(edge_gate.phi_rank1_reference(*args), args, g)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
+    # gradients: the autograd.Function's backward vs autograd through the
+    # plain version
     args = [t.requires_grad_() for t in pair_inputs(2, 7, 11, 48,
                                                     torch.float32, seed=1)]
     gs = (torch.randn(2, 7, 11, device="cuda"),
@@ -397,8 +406,8 @@ def check_kernels(served) -> dict:
     for a, b in zip(pair_grad(edge_gate.phi_rank1_pair),
                     pair_grad(edge_gate.phi_rank1_pair_reference)):
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-5)
-    print("edge_gate backward (one direction and pair) matches autograd "
-          "through the plain version")
+    print("edge_gate pair backward matches autograd through the plain "
+          "version")
     return max_err
 
 
@@ -1258,20 +1267,377 @@ def train_phase(raws, card_line, serve_ms, profile=None):
           f"{[round(r['metrics']['loss'], 3) for r in probe.steps]}, gate "
           f"launches 0, parameters moved up to {moved:.3e}")
     report_run(probe, out, "fabind_plus bf16", card_line)
-    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
     print(f"time phase 7 (training) wall: {time.perf_counter() - t_phase:.1f} "
           f"s [{card_line}]")
     return {torch.float32: full.launches_by_bucket(),
             torch.bfloat16: runs["bf16"].launches_by_bucket()}
 
 
-def time_kernel_rows(served, max_err, launches, train_launches, sms,
-                     clock_hz, card_line):
+class EvalProbe:
+    """While open, records cli.evaluate's calls: each evaluation forward
+    (stage, bucket, gate launches, poses), each post-optimization (host ms
+    from a synchronized start, the configuration loss of the batch before
+    and after) and each distance-map docking (host ms, the kept poses,
+    every restart's poses and final losses)."""
+
+    def __init__(self):
+        self.forwards, self.postopt, self.distmap = [], [], []
+
+    def __enter__(self):
+        probe = self
+        self.orig = (cli_evaluate.eval_forward,
+                     cli_evaluate.post_optimize_batch,
+                     cli_evaluate.distance_dock_best_of)
+
+        def forward(model, batch, stage, shapes):
+            before = edge_gate.KERNEL.launches
+            out = probe.orig[0](model, batch, stage, shapes)
+            probe.forwards.append(dict(
+                stage=stage, label=bucket_label(shapes),
+                launches=edge_gate.KERNEL.launches - before,
+                coords=(out.coords * batch.lig_mask[..., None]).cpu()))
+            return out
+
+        def postopt(coords, ref, las, mask, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, final = probe.orig[1](coords, ref, las, mask, **kw)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            ref_dis = pairwise_dist(ref, ref)
+            before = configuration_loss(coords, ref_dis, las, mask).sum()
+            probe.postopt.append(dict(s=sec, before=float(before),
+                                      after=float(final.sum()),
+                                      finite=bool(torch.isfinite(x).all())))
+            return x, final
+
+        def distmap(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            best, xs, losses = probe.orig[2](*a, **kw)
+            torch.cuda.synchronize()
+            probe.distmap.append(dict(s=time.perf_counter() - t0,
+                                      best=best.cpu(), xs=xs.cpu(),
+                                      losses=losses.cpu(), mask=a[4].cpu()))
+            return best, xs, losses
+
+        (cli_evaluate.eval_forward, cli_evaluate.post_optimize_batch,
+         cli_evaluate.distance_dock_best_of) = forward, postopt, distmap
+        return self
+
+    def __exit__(self, *exc):
+        (cli_evaluate.eval_forward, cli_evaluate.post_optimize_batch,
+         cli_evaluate.distance_dock_best_of) = self.orig
+
+    def launches_by_bucket(self):
+        out = {}
+        for r in self.forwards:
+            out[r["label"]] = out.get(r["label"], 0) + r["launches"]
+        return out
+
+
+def evaluate_cli(ckpt, data, out, *extra):
+    """cli.evaluate.main at released width over the phase-3 buckets, batch
+    8; returns its metrics, checked for JAX's keys and finite RMSDs. The
+    per-pdb RMSDs go to `out`.txt."""
+    argv = ["--data", data, "--ckpt", ckpt, "--batch-size", str(BATCH),
+            "--buckets", BUCKETS, "--workers", "4", "--prefetch", "2",
+            "--save-rmsd", f"{out}.txt", "--out", f"{out}.json", *extra]
+    for k, v in SMOKE_SHAPES.items():
+        argv += ["--set", f"{k}={v}"]
+    m = cli_evaluate.main(argv)
+    keys = set(m)
+    check(EVAL_KEYS <= keys <= EVAL_KEYS | {"pocket_truncated_residues_max"},
+          f"cli.evaluate keys {sorted(keys ^ EVAL_KEYS)}")
+    check(all(np.isfinite(r) for r in per_pdb(out).values()),
+          "cli.evaluate: finite RMSDs")
+    return m
+
+
+def per_pdb(out) -> dict:
+    """{pdb: rmsd} of a --save-rmsd file."""
+    with open(f"{out}.txt") as f:
+        return {p: float(r) for p, r in (line.split() for line in f)}
+
+
+def large_bucket_names(raws, n):
+    """The NPZ names (r00, ...) of the first n requests that route to the
+    large bucket."""
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    cfgs = sort_bucket_cfgs(cfg, resolve_buckets(BUCKETS, cfg))
+    names = [f"r{i:02d}" for i, raw in enumerate(raws)
+             if route_sample(build_sample(raw, cfg, group="test"), cfgs)
+             is cfgs[-1]]
+    check(len(names) >= n, f"{n} requests in the large bucket")
+    return names[:n]
+
+
+def eval_checks(raws, card_line):
+    """Phase 8, evaluation: cli.evaluate of phase 7's fp32 base run at
+    stages 2 and 1 (33 gate launches per batch and stage), against the same
+    evaluation with the plain gate, with --post-optim and with
+    --distmap-dock; the fault-1 repair. Returns the gate launches by bucket
+    of the two evaluations with the kernel."""
+    data = str(TRAIN_ROOT / "data")
+    ckpt = str(TRAIN_ROOT / "fp32")
+    out = TRAIN_ROOT / "eval"
+    out.mkdir(exist_ok=True)
+    # the main path: stage 2 then stage 1, the counts set to 0 just before
+    # and read just after
+    with EvalProbe() as probe:
+        edge_gate.KERNEL.launches = 0
+        m2 = evaluate_cli(ckpt, data, out / "stage2")
+        m1 = evaluate_cli(ckpt, data, out / "stage1", "--stage", "1")
+        launches = edge_gate.KERNEL.launches
+    by_bucket = probe.launches_by_bucket()
+    check(launches == sum(by_bucket.values()) > 0,
+          f"evaluation: {launches} gate launches outside the forwards")
+    for r in probe.forwards:
+        check(r["launches"] == 33,
+              f"evaluation stage {r['stage']} bucket {r['label']}: "
+              f"{r['launches']} gate launches, expected 33")
+    for m in (m2, m1):
+        check(m["n"] == len(raws) - m["n_dropped_oversize"],
+              f"evaluation n {m['n']} of {len(raws)} less "
+              f"{m['n_dropped_oversize']} dropped")
+    print(f"eval fp32 stage 2: rmsd_mean {m2['rmsd_mean']:.3f}, "
+          f"pocket_center_avg_dist {m2['pocket_center_avg_dist']:.3f}, n "
+          f"{m2['n']}; stage 1: rmsd_mean {m1['rmsd_mean']:.3f}; gate "
+          f"launches {launches} in {len(probe.forwards)} forwards, by bucket "
+          f"{by_bucket}")
+    print(f"time eval fp32 stage 2 cli.evaluate {m2['n']} complexes (load + "
+          f"featurize + model + metrics): {m2['complexes_per_sec']:.2f} "
+          f"complexes/s; stage 1 {m1['complexes_per_sec']:.2f} complexes/s "
+          f"[{card_line}]")
+
+    # kernel against plain gate, per pdb (RMSDs as cli.evaluate writes them,
+    # to 1e-6 A) and per atom
+    kernel_poses = [r["coords"] for r in probe.forwards if r["stage"] == 2]
+    orig = layers.phi_rank1_pair
+    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
+    try:
+        with EvalProbe() as plain_probe:
+            evaluate_cli(ckpt, data, out / "plain")
+    finally:
+        layers.phi_rank1_pair = orig
+    check(all(r["launches"] == 0 for r in plain_probe.forwards),
+          "the plain-gate evaluation launched the kernel")
+    kern, plain = per_pdb(out / "stage2"), per_pdb(out / "plain")
+    check(set(kern) == set(plain), "the same pdbs with the plain gate")
+    diff = max(abs(kern[p] - plain[p]) for p in kern)
+    d_atom = max(float((a - r["coords"]).abs().max())
+                 for a, r in zip(kernel_poses, plain_probe.forwards))
+    print(f"eval fp32 stage 2, kernel vs plain gate: per-pdb RMSD max "
+          f"difference {diff:.3e} A (limit {POSE_TOL_A} A), max coordinate "
+          f"difference {d_atom:.3e} A")
+    check(diff <= POSE_TOL_A, f"evaluation kernel vs plain gate {diff} A")
+
+    # --post-optim: not worse in configuration loss, batch by batch
+    with EvalProbe() as probe:
+        mp = evaluate_cli(ckpt, data, out / "postopt", "--post-optim")
+    for r in probe.postopt:
+        check(r["finite"] and r["after"] <= r["before"],
+              f"--post-optim raised the configuration loss {r}")
+    losses = [(round(r["before"], 1), round(r["after"], 1))
+              for r in probe.postopt]
+    print(f"eval --post-optim (1000 steps): configuration loss per batch "
+          f"{losses}, rmsd_mean {m2['rmsd_mean']:.3f} -> "
+          f"{mp['rmsd_mean']:.3f}")
+    print(f"time eval --post-optim 1000 steps per batch of {BATCH}: median "
+          f"{statistics.median(r['s'] for r in probe.postopt) * 1e3:.2f} ms "
+          f"[{card_line}]")
+
+    # --distmap-dock on one large-bucket batch, twice with the same seed
+    index = out / "distmap_ids.txt"
+    index.write_text("\n".join(large_bucket_names(raws, BATCH)) + "\n")
+    runs = []
+    for _ in range(2):
+        with EvalProbe() as probe:
+            md = evaluate_cli(ckpt, data, out / "distmap", "--distmap-dock",
+                              "--distmap-repeats", str(DISTMAP_REPEATS),
+                              "--unseen-index", str(index))
+        runs.append(probe.distmap)
+    for r in runs[0]:
+        m = r["mask"][..., None]
+        check(bool(torch.isfinite(r["best"] * m).all()),
+              "--distmap-dock: finite poses")
+        kept = r["xs"][r["losses"].argmin(0), torch.arange(BATCH)]
+        check(torch.equal(kept, r["best"]),
+              "--distmap-dock keeps each complex's lowest-loss restart")
+    same = all(torch.equal(a["best"], b["best"])
+               for a, b in zip(*runs)) and len(runs[0]) == len(runs[1])
+    check(same, "--distmap-dock: the same seed, the same poses")
+    final = runs[0][0]["losses"].numpy().round(2).tolist()
+    print(f"eval --distmap-dock (5000 steps, {DISTMAP_REPEATS} restarts) on "
+          f"{md['n']} complexes: rmsd_mean {md['rmsd_mean']:.3f}; final "
+          f"losses per restart {final}; kept the lowest, the same seed "
+          f"bit-identical")
+    print(f"time eval --distmap-dock 5000 steps x {DISTMAP_REPEATS} restarts "
+          f"per batch of {BATCH}: "
+          f"{[round(r['s'] * 1e3, 2) for rs in runs for r in rs]} ms "
+          f"[{card_line}]")
+
+    # the fault-1 repair: a bf16 Trainer evaluates its float32 weights on
+    # the float32 batch
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    buckets = resolve_buckets(BUCKETS, cfg)
+    sd = load_weights(ckpt)
+    tr = Trainer(preset("fabind", bf16=True, **SMOKE_SHAPES), "cuda",
+                 state_dict=sd)
+    batch, cfg_b = first_batch(data, cfg, buckets, bucket_label(buckets[-1]))
+    got = tr.eval_step(batch, 2, cfg_b)
+    model = make_model(cfg)
+    model.load_state_dict(sd)
+    want = eval_forward(model.cuda(), batch, 2, cfg_b.shapes)
+    equal = all(torch.equal(getattr(got, f), getattr(want, f))
+                for f in ("coords", "y_pred", "pocket_coords"))
+    model16, b16 = tr._compute(batch)
+    old = eval_forward(model16, b16, 2, cfg_b.shapes)
+    d_old = batch_dist(old.coords, want.coords, batch)
+    print(f"eval bf16 Trainer.eval_step vs the fp32 model's forward on the "
+          f"fp32 batch: bit-equal {equal} (the bfloat16 copy on the bf16 "
+          f"batch, the path before the repair: per-atom mean "
+          f"{d_old.mean():.3f} A)")
+    check(equal and got.coords.dtype == torch.float32,
+          "bf16 Trainer evaluates its float32 weights")
+    del tr, model, model16
+    return by_bucket
+
+
+def confidence_checks(raws, card_line):
+    """Phase 8, confidence training and sampling: cli.train_confidence from
+    phase 7's FABind+ run with each pose source, then cli.sample with the
+    trained head."""
+    data = write_npz_dir(raws[:N_SAMPLE], TRAIN_ROOT / "data_conf",
+                         isomorphisms=True)
+    start = load_weights(str(TRAIN_ROOT / "plus"))
+    cfg = preset("fabind_plus", confidence_training=True, **SMOKE_SHAPES)
+    fresh = make_model(cfg)
+    init_params(fresh, torch.Generator().manual_seed(cfg.train.seed))
+    init = fresh.state_dict()
+    for source in ("teacher", "inference"):
+        out = TRAIN_ROOT / f"conf_{source}"
+        shutil.rmtree(out, ignore_errors=True)
+        seen, step_s = {}, []
+        orig = (cli_train_confidence.build_confidence_optimizer,
+                cli_train_confidence.make_confidence_train_step)
+
+        def build(c, model):
+            seen["model"] = model
+            return orig[0](c, model)
+
+        def make_step(*a, **kw):
+            step = orig[1](*a, **kw)
+
+            def timed(*sa, **skw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                m = step(*sa, **skw)
+                step_s.append(time.perf_counter() - t0)
+                return m
+            return timed
+
+        (cli_train_confidence.build_confidence_optimizer,
+         cli_train_confidence.make_confidence_train_step) = build, make_step
+        torch.cuda.empty_cache()
+        held = reset_peak()
+        try:
+            edge_gate.KERNEL.launches = 0
+            argv = ["--data", data, "--output", str(out), "--init-ckpt",
+                    str(TRAIN_ROOT / "plus"), "--epochs", "1", "--batch-size",
+                    str(BATCH), "--num-copies", str(CONF_COPIES),
+                    "--pose-source", source]
+            for k, v in SMOKE_SHAPES.items():
+                argv += ["--set", f"{k}={v}"]
+            rc = cli_train_confidence.main(argv)
+            launches = edge_gate.KERNEL.launches
+        finally:
+            (cli_train_confidence.build_confidence_optimizer,
+             cli_train_confidence.make_confidence_train_step) = orig
+        peak = torch.cuda.max_memory_allocated()
+        check(rc == 0, f"cli.train_confidence {source} returned {rc}")
+        check(launches == 0, f"confidence training launched the gate "
+                             f"{launches} times")
+        final = load_weights(str(out / "ckpt" / "params_epoch0"))
+        trunk_same = all(torch.equal(v, start[k]) for k, v in final.items()
+                         if not k.startswith(HEAD_PREFIXES))
+        head_moved = all(not torch.equal(v, init[k])
+                         for k, v in final.items()
+                         if k.startswith(HEAD_PREFIXES) and k != SCORE_BIAS)
+        no_grad = all(p.grad is None for n, p in
+                      seen["model"].named_parameters()
+                      if not n.startswith(HEAD_PREFIXES))
+        check(trunk_same and head_moved and no_grad,
+              f"confidence {source}: trunk as loaded {trunk_same}, head "
+              f"moved {head_moved}, no trunk gradient {no_grad}")
+        rec = [r for r in epoch_records(out)][-1]
+        check(set(METRIC_KEYS) <= set(rec)
+              and np.isfinite(rec["confidence_loss"]),
+              f"confidence {source} log {rec}")
+        print(f"confidence {source} ({len(step_s)} steps of {BATCH} x "
+              f"{CONF_COPIES} copies): " + ", ".join(
+                  f"{k} {rec[k]:.4f}" for k in METRIC_KEYS)
+              + "; trunk bit-equal to the checkpoint, every ranking tensor "
+              "but the score bias moved, no trunk gradient, gate launches 0")
+        print(f"time confidence step {source} (batch {BATCH}, "
+              f"{CONF_COPIES} copies): "
+              f"{[round(x * 1e3, 2) for x in step_s]} ms; peak device memory "
+              f"{peak / 2**30:.2f} GiB, of which {held[0] / 2**30:.2f} GiB "
+              f"allocated when it began [{card_line}]")
+        seen.clear()
+
+    # cli.sample with the inference-source head, twice with one seed
+    ckpt = str(TRAIN_ROOT / "conf_inference" / "ckpt" / "params_epoch0")
+    res = []
+    for i in range(2):
+        rdir = TRAIN_ROOT / f"sample_{i}"
+        shutil.rmtree(rdir, ignore_errors=True)
+        argv = ["--ckpt", ckpt, "--data", data, "--sample-size",
+                str(SAMPLE_PASSES), "--batch-size", str(BATCH), "--seed",
+                str(SAMPLE_SEED), "--save-rmsd-dir", str(rdir)]
+        for k, v in SMOKE_SHAPES.items():
+            argv += ["--set", f"{k}={v}"]
+        t0 = time.perf_counter()
+        res.append((cli_sample.main(argv), time.perf_counter() - t0))
+        files = sorted(os.listdir(rdir))
+        check(files == sorted(f"epoch{s}_confidence.txt"
+                              for s in range(SAMPLE_PASSES)),
+              f"cli.sample files {files}")
+        for f in files:
+            check(len((rdir / f).read_text().splitlines()) == N_SAMPLE,
+                  f"cli.sample {f}: one line per complex")
+    (a, sa), (b, sb) = res
+    check(a["n"] == N_SAMPLE and a["sample_size"] == SAMPLE_PASSES,
+          f"cli.sample n {a['n']}, sample_size {a['sample_size']}")
+    check(a == b, "cli.sample: the same seed, the same metrics")
+    print(f"sample {N_SAMPLE} complexes x {SAMPLE_PASSES} passes: "
+          f"rmsd_mean {a['rmsd_mean']:.3f}, rmsd_lt2 {a['rmsd_lt2']:.3f}; "
+          f"the same seed the same JSON")
+    print(f"time sample cli.sample {N_SAMPLE} complexes x {SAMPLE_PASSES} "
+          f"passes (load + sampling + metrics): {N_SAMPLE / sa:.2f}, "
+          f"{N_SAMPLE / sb:.2f} complexes/s [{card_line}]")
+
+
+def eval_phase(raws, card_line):
+    """Phase 8: evaluation and confidence training on the card, from phase
+    7's NPZ directory and runs. Returns the evaluation's gate launches by
+    bucket (fp32)."""
+    t_phase = time.perf_counter()
+    by_bucket = eval_checks(raws, card_line)
+    confidence_checks(raws, card_line)
+    shutil.rmtree(TRAIN_ROOT, ignore_errors=True)
+    print(f"time phase 8 (evaluation, confidence) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return {torch.float32: by_bucket}
+
+
+def time_kernel_rows(served, max_err, launches, train_launches,
+                     eval_launches, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
     per batch, with the serving path's launch counts; and one per (dtype,
-    bucket) of the training path (its batches have the served shapes), with
-    its launch counts."""
+    bucket) of the training path and of the evaluation path (fp32 only;
+    their batches have the served shapes), with their launch counts."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -1282,9 +1648,8 @@ def time_kernel_rows(served, max_err, launches, train_launches, sms,
                 k_ms = cuda_time_ms(lambda: edge_gate.phi_rank1_pair(*a))
                 p_ms = cuda_time_ms(
                     lambda: edge_gate.phi_rank1_pair_reference(*a))
-                b_ms = gate_bound_ms(B, Na, Nb, H, pair=True,
-                                     elem_bytes=dtype.itemsize)
-                f_ms = sfu_floor_ms(B, Na, Nb, H, sms, clock_hz, pair=True)
+                b_ms = gate_bound_ms(B, Na, Nb, H, elem_bytes=dtype.itemsize)
+                f_ms = sfu_floor_ms(B, Na, Nb, H, sms, clock_hz)
                 per.append((per_batch, k_ms, p_ms, b_ms, f_ms))
                 print(f"time edge_gate pair {name} [{B},{Na},{Nb},{H}] "
                       f"{tag} silu (bucket {label}): kernel {k_ms:.4f} ms, "
@@ -1298,7 +1663,10 @@ def time_kernel_rows(served, max_err, launches, train_launches, sms,
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, "
                   f"MUFU floor {f_ms:.4f} ms; device time per batch "
                   f"{k_ms * n:.4f} ms [{card_line}]")
-            for path, counts in (("", launches), ("train ", train_launches)):
+            for path, counts in (("", launches), ("train ", train_launches),
+                                 ("evaluate ", eval_launches)):
+                if dtype not in counts:
+                    continue
                 rows.append({
                     "name": f"edge_gate {path}{tag} bucket {label}",
                     "route": "cuda",
@@ -1308,14 +1676,6 @@ def time_kernel_rows(served, max_err, launches, train_launches, sms,
                     "max_abs_err": max_err[(dtype, label)],
                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                     "bound_by": "operations", "library_ms": None})
-    for name, B, D, N, H, _ in SINGLE_SHAPES:
-        a = gate_inputs(B, D, N, H, torch.float32)
-        t_ms = cuda_time_ms(lambda: edge_gate.phi_rank1(*a))
-        print(f"time edge_gate one direction {name} [{B},{D},{N},{H}] fp32 "
-              f"silu: kernel {t_ms:.4f} ms, fp32 bound "
-              f"{gate_bound_ms(B, D, N, H):.4f} ms, MUFU floor "
-              f"{sfu_floor_ms(B, D, N, H, sms, clock_hz):.4f} ms "
-              f"[{card_line}]")
     return rows
 
 
@@ -1451,9 +1811,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     train_launches = train_phase(raws, card_line, lat16, args.profile)
 
+    # ---- 8. evaluation and confidence training, from phase 7's runs
+    torch.cuda.empty_cache()
+    eval_launches = eval_phase(raws, card_line)
+
     # ---- 4b. kernel times
     rows = time_kernel_rows(served, max_err, main_launches, train_launches,
-                            sms, clock_hz, card_line)
+                            eval_launches, sms, clock_hz, card_line)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

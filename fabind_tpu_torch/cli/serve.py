@@ -5,7 +5,8 @@ Usage:
   python -m fabind_tpu_torch.cli.serve \
       --preset fabind|fabind_plus|fabind_plus_sampling --ckpt best_model.bin \
       [--host 127.0.0.1] [--port 8400] [--batch-size 8] [--no-bf16] \
-      [--post-optim-steps N] [--buckets l:p:r,l:p:r] [--warmup] \
+      [--post-optim-steps N] [--warmup] \
+      [--buckets l:p:r,l:p:r | --buckets auto[:K] --data NPZ_DIR] \
       [--set KEY=VALUE ...] [--device cuda|cpu]
 
 Without --ckpt the engine serves seeded random weights (smoke tests only).
@@ -31,7 +32,12 @@ def main(argv=None):
     p.add_argument("--post-optim-steps", type=int, default=0)
     p.add_argument("--buckets", default=None,
                    help="explicit shape buckets 'lig:pocket:protein,...' "
-                        "(the largest must cover the preset's shapes)")
+                        "(the largest must cover the preset's shapes), or "
+                        "'auto'/'auto:K' to infer up to K (default 3) "
+                        "buckets from --data's size distribution")
+    p.add_argument("--data", default=None,
+                   help="directory of .npz samples that '--buckets auto' "
+                        "measures")
     p.add_argument("--warmup", action="store_true",
                    help="run one batch in every bucket before binding the "
                         "port")
@@ -42,12 +48,7 @@ def main(argv=None):
     if args.preset == "fabflex":
         raise NotImplementedError(
             "preset 'fabflex': the flexible-docking forward is not ported "
-            "yet (ROADMAP queue 1 item 15)")
-    if args.buckets and args.buckets.startswith("auto"):
-        raise SystemExit(
-            "--buckets auto needs the dataset reader (data/dataset.py), "
-            "which the port does not have yet; give explicit "
-            "lig:pocket:protein buckets")
+            "yet (ROADMAP queue 1)")
 
     from fabind_tpu_torch.config import parse_overrides, preset
     from fabind_tpu_torch.data.buckets import resolve_buckets
@@ -55,7 +56,15 @@ def main(argv=None):
     from fabind_tpu_torch.serve_http import serve_forever
 
     cfg = preset(args.preset, **parse_overrides(args.set))
-    buckets = resolve_buckets(args.buckets, cfg)
+    source = indices = None
+    if args.buckets and args.buckets.startswith("auto"):
+        if not args.data:
+            raise SystemExit("--buckets auto requires --data to measure "
+                             "the complex-size distribution")
+        from fabind_tpu_torch.data.dataset import open_source
+        source, indices = open_source(args.data)
+    buckets = resolve_buckets(args.buckets, cfg, source, indices,
+                              group="test")
     if buckets is not None:
         print("buckets:", [(s.max_ligand, s.max_pocket, s.max_protein)
                            for s in buckets])

@@ -26,6 +26,7 @@ from typing import Callable, Optional
 
 import torch
 
+from fabind_tpu_torch.cli.common import resolve_device
 from fabind_tpu_torch.config import parse_overrides, preset
 from fabind_tpu_torch.data.buckets import resolve_buckets
 from fabind_tpu_torch.data.dataset import Loader, open_source
@@ -79,9 +80,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="batches prepared ahead of the device (0 = off)")
     p.add_argument("--transfer-dtype", default="fp32",
                    choices=["fp32", "bf16"],
-                   help="upload dtype of the batch's ESM rows (prot_feat, "
-                        "the largest host->device bytes); bf16 halves them "
-                        "and rounds the inputs to bf16")
+                   help="upload dtype of a training batch's ESM rows "
+                        "(prot_feat, the largest host->device bytes); bf16 "
+                        "halves them and rounds the inputs to bf16; "
+                        "validation batches go in fp32")
     p.add_argument("--buckets", default="auto",
                    help="shape buckets: 'auto' ('auto:K') measures the "
                         "train split and picks up to 3 (K); 'none' pads "
@@ -110,10 +112,7 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
     every step with the step count after it, the step's metrics (floats)
     and the batch's loader meta (pdb names, n_valid, the bucket's cfg)."""
     args = parse_args(argv)
-    device = torch.device(args.device or "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("cli.train: CUDA is not available; pass "
-                           "--device cpu to train on the CPU")
+    device = resolve_device(args.device, "cli.train")
     overrides = parse_overrides(args.set)
     if args.epochs:
         overrides["total_epochs"] = args.epochs
@@ -220,8 +219,7 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
                            meta={"epoch": epoch + 1, "batch_in_epoch": 0})
             if (args.eval_every > 0 and (epoch + 1) % args.eval_every == 0
                     and valid_loader.indices):
-                evaluate(trainer, valid_loader, device, args.transfer_dtype,
-                         logger)
+                evaluate(trainer, valid_loader, device, logger)
         if prof is not None:
             _stop_profile(prof, args.profile_dir, logger)
         ckptr.close()
@@ -232,15 +230,17 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
         logger.close()
 
 
-def evaluate(trainer: Trainer, loader: Loader, device, transfer_dtype: str,
+def evaluate(trainer: Trainer, loader: Loader, device,
              logger: Logger) -> dict:
     """Stage 1 (the precomputed pocket) and stage 2 (the predicted one)
-    over the validation loader; logs and returns {stage: summary}."""
+    over the validation loader, float32 batches on the float32 weights
+    (--bf16 and --transfer-dtype apply to training batches only, as in the
+    JAX CLI); logs and returns {stage: summary}."""
     out = {}
     for stage in (1, 2):
         acc = MetricAccumulator()
         for arrays, meta in loader.epoch(0, with_meta=True):
-            batch = to_batch(arrays, device, transfer_dtype)
+            batch = FABindBatch.from_numpy(arrays, device)
             acc.update(trainer.eval_step(batch, stage, meta["cfg"]), batch)
         out[stage] = acc.summarize()
         logger.log_metrics(out[stage], trainer.step,

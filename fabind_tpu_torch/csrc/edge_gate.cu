@@ -6,9 +6,6 @@
 //   act in {silu, relu}; l1_a [B, Na, H], l1_b [B, Nb, H], r [B, Na, Nb],
 //   u [H], w2 [H] -> phi_ab [B, Na, Nb], phi_ba [B, Nb, Na]
 //
-// With l1_a and phi_ba null it computes phi_ab alone: the one-direction gate
-// phi[b, d, n] = sum_h w2[h] * act(l1_v[b, n, h] + r[b, d, n] * u[h]).
-//
 // Replaces the TPU kernel phi_rank1_pallas
 // (fabind_tpu/ops/pallas/edge_gate.py, pl.pallas_call at :63, body _kernel
 // at :41-49), which the JAX model calls once per direction. Like it, the [B, Na, Nb, H] pre-activation never exists
@@ -94,15 +91,15 @@ __device__ __forceinline__ float comp(const float4& v, int k) {
 }
 
 // Shared memory, in floats: a region that first holds the staged rows
-// (TJ rows of l1_b, then TI rows of l1_a when PAIR) and then the partial
-// sums (WARPS x OUTS x 32), followed by u and w2 (Hp each).
-__host__ __device__ inline int region_floats(int Hp, bool pair) {
-  const int rows = (pair ? TI + TJ : TJ) * (Hp + 4);
+// (TJ rows of l1_b, then TI rows of l1_a) and then the partial sums
+// (WARPS x OUTS x 32), followed by u and w2 (Hp each).
+__host__ __device__ inline int region_floats(int Hp) {
+  const int rows = (TI + TJ) * (Hp + 4);
   const int partials = WARPS * OUTS * 32;
   return rows > partials ? rows : partials;
 }
 
-template <typename T, int ACT, bool PAIR>
+template <typename T, int ACT>
 __global__ void __launch_bounds__(THREADS, 4)
 edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
                  const T* __restrict__ r, const T* __restrict__ u,
@@ -113,9 +110,9 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
   float* smem = reinterpret_cast<float*>(smem4);
   const int HS = Hp + 4;
   float* sb = smem;                       // [TJ][HS]
-  float* sa = smem + TJ * HS;             // [TI][HS], PAIR only
+  float* sa = smem + TJ * HS;             // [TI][HS]
   float* red = smem;                      // [WARPS][OUTS][32], after compute
-  float* su = smem + region_floats(Hp, PAIR);
+  float* su = smem + region_floats(Hp);
   float* sw = su + Hp;
 
   const int tid = threadIdx.x;
@@ -149,14 +146,12 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
       for (int h = lane; h < Hp; h += 32)
         sb[row * HS + h] = ok && h < H ? load_f(src + h) : 0.0f;
     }
-    if constexpr (PAIR) {
-      const T* la = l1_a + (size_t)b * Na * H;
-      for (int row = warp; row < TI; row += WARPS) {
-        const bool ok = i0 + row < Na;
-        const T* src = la + (size_t)(i0 + row) * H;
-        for (int h = lane; h < Hp; h += 32)
-          sa[row * HS + h] = ok && h < H ? load_f(src + h) : 0.0f;
-      }
+    const T* la = l1_a + (size_t)b * Na * H;
+    for (int row = warp; row < TI; row += WARPS) {
+      const bool ok = i0 + row < Na;
+      const T* src = la + (size_t)(i0 + row) * H;
+      for (int h = lane; h < Hp; h += 32)
+        sa[row * HS + h] = ok && h < H ? load_f(src + h) : 0.0f;
     }
     float rv[2][2];
 #pragma unroll
@@ -183,11 +178,8 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
       const float4 W = *reinterpret_cast<const float4*>(sw + hb + h);
       const float4 B0 = *reinterpret_cast<const float4*>(pb0 + h);
       const float4 B1 = *reinterpret_cast<const float4*>(pb1 + h);
-      float4 A0, A1;
-      if constexpr (PAIR) {
-        A0 = *reinterpret_cast<const float4*>(pa0 + h);
-        A1 = *reinterpret_cast<const float4*>(pa1 + h);
-      }
+      const float4 A0 = *reinterpret_cast<const float4*>(pa0 + h);
+      const float4 A1 = *reinterpret_cast<const float4*>(pa1 + h);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const float uk = comp(U, k);
@@ -198,13 +190,11 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
 #pragma unroll
           for (int kj = 0; kj < 2; ++kj) {
             const float ru = rv[ki][kj] * uk;
+            const float ak = comp(ki == 0 ? A0 : A1, k);
             acc_ab[ki][kj] =
                 fmaf(wk, activate<ACT>(bk[kj] + ru), acc_ab[ki][kj]);
-            if constexpr (PAIR) {
-              const float ak = comp(ki == 0 ? A0 : A1, k);
-              acc_ba[ki][kj] =
-                  fmaf(wk, activate<ACT>(ak + ru), acc_ba[ki][kj]);
-            }
+            acc_ba[ki][kj] =
+                fmaf(wk, activate<ACT>(ak + ru), acc_ba[ki][kj]);
           }
         }
       }
@@ -217,8 +207,7 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
       for (int kj = 0; kj < 2; ++kj) {
         const int o = ki * 2 + kj;
         red[(warp * OUTS + o) * 32 + lane] = acc_ab[ki][kj];
-        if constexpr (PAIR)
-          red[(warp * OUTS + 4 + o) * 32 + lane] = acc_ba[ki][kj];
+        red[(warp * OUTS + 4 + o) * 32 + lane] = acc_ba[ki][kj];
       }
     }
     __syncthreads();
@@ -226,34 +215,32 @@ edge_gate_kernel(const T* __restrict__ l1_a, const T* __restrict__ l1_b,
     // one output per thread, laid out for coalesced stores: threads 0-127
     // write phi_ab (8 rows of 16 j), threads 128-255 phi_ba (16 rows of 8 i)
     const bool ab = tid < TI * TJ;
-    if (ab || PAIR) {
-      const int t = ab ? tid : tid - TI * TJ;
-      const int il = ab ? t / TJ : t % TI;
-      const int jl = ab ? t % TJ : t / TI;
-      const int o = (ab ? 0 : 4) + (il >> 2) * 2 + (jl >> 3);
-      const int src_lane = (il & 3) * 8 + (jl & 7);
-      float s = 0.0f;
+    const int t = ab ? tid : tid - TI * TJ;
+    const int il = ab ? t / TJ : t % TI;
+    const int jl = ab ? t % TJ : t / TI;
+    const int o = (ab ? 0 : 4) + (il >> 2) * 2 + (jl >> 3);
+    const int src_lane = (il & 3) * 8 + (jl & 7);
+    float s = 0.0f;
 #pragma unroll
-      for (int w = 0; w < WARPS; ++w) s += red[(w * OUTS + o) * 32 + src_lane];
-      const int i = i0 + il;
-      const int j = j0 + jl;
-      if (i < Na && j < Nb) {
-        if (ab)
-          store_f(out_ab + ((size_t)b * Na + i) * Nb + j, s);
-        else
-          store_f(out_ba + ((size_t)b * Nb + j) * Na + i, s);
-      }
+    for (int w = 0; w < WARPS; ++w) s += red[(w * OUTS + o) * 32 + src_lane];
+    const int i = i0 + il;
+    const int j = j0 + jl;
+    if (i < Na && j < Nb) {
+      if (ab)
+        store_f(out_ab + ((size_t)b * Na + i) * Nb + j, s);
+      else
+        store_f(out_ba + ((size_t)b * Nb + j) * Na + i, s);
     }
   }
 }
 
-template <typename T, int ACT, bool PAIR>
+template <typename T, int ACT>
 cudaError_t launch(const void* l1_a, const void* l1_b, const void* r,
                    const void* u, const void* w2, void* out_ab, void* out_ba,
                    int B, int Na, int Nb, int H, cudaStream_t stream) {
-  auto kernel = edge_gate_kernel<T, ACT, PAIR>;
+  auto kernel = edge_gate_kernel<T, ACT>;
   const int Hp = (H + HPAD - 1) / HPAD * HPAD;
-  const size_t smem = sizeof(float) * (region_floats(Hp, PAIR) + 2 * Hp);
+  const size_t smem = sizeof(float) * (region_floats(Hp) + 2 * Hp);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -282,31 +269,24 @@ cudaError_t dispatch(const void* l1_a, const void* l1_b, const void* r,
                      const void* u, const void* w2, void* out_ab,
                      void* out_ba, int B, int Na, int Nb, int H, int act,
                      cudaStream_t s) {
-  const bool pair = l1_a != nullptr;
   if (act == 0)
-    return pair ? launch<T, 0, true>(l1_a, l1_b, r, u, w2, out_ab, out_ba, B,
-                                     Na, Nb, H, s)
-                : launch<T, 0, false>(l1_a, l1_b, r, u, w2, out_ab, out_ba,
-                                      B, Na, Nb, H, s);
-  return pair ? launch<T, 1, true>(l1_a, l1_b, r, u, w2, out_ab, out_ba, B,
-                                   Na, Nb, H, s)
-              : launch<T, 1, false>(l1_a, l1_b, r, u, w2, out_ab, out_ba, B,
-                                    Na, Nb, H, s);
+    return launch<T, 0>(l1_a, l1_b, r, u, w2, out_ab, out_ba, B, Na, Nb, H,
+                        s);
+  return launch<T, 1>(l1_a, l1_b, r, u, w2, out_ab, out_ba, B, Na, Nb, H, s);
 }
 
 }  // namespace
 
-// act: 0 silu, 1 relu. dtype: 0 fp32, 1 bf16 (all tensors share it).
-// l1_a and out_ba both null: phi_ab alone. B * ceil(Na / 8) * ceil(Nb / 16)
-// must fit in an int. Returns the first CUDA error of the set-up or the
-// launch (0 on success).
+// act: 0 silu, 1 relu. dtype: 0 fp32, 1 bf16 (all tensors share it). No
+// pointer may be null. B * ceil(Na / 8) * ceil(Nb / 16) must fit in an int.
+// Returns the first CUDA error of the set-up or the launch (0 on success).
 extern "C" int fabind_edge_gate_pair(const void* l1_a, const void* l1_b,
                                      const void* r, const void* u,
                                      const void* w2, void* out_ab,
                                      void* out_ba, int B, int Na, int Nb,
                                      int H, int act, int dtype,
                                      void* stream) {
-  if ((l1_a == nullptr) != (out_ba == nullptr))
+  if (!l1_a || !l1_b || !r || !u || !w2 || !out_ab || !out_ba)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =

@@ -58,6 +58,8 @@ class FABindOutput:
     pkt_mask: Tensor           # [B, Np]
     pocket_radius_pred: Tensor  # [B] FABind+ radius head (zeros for base)
     confidence: Tensor         # [B] FABind+ confidence head (zeros otherwise)
+    pocket_coords: Tensor      # [B, Np, 3] docked pocket residues (protein-
+    #                            mean frame; the crop's coordinates, rigid)
 
 
 class FABind(nn.Module):
@@ -263,7 +265,7 @@ class FABind(nn.Module):
         out = self._dock(batch, compound_out, protein_out, pkt_idx, pkt_mask,
                          use_stage2, shapes.ctx_k)
         (coords, y_pred, y_by_coord, dis_map, pair_valid, confidence,
-         ctx_overflow) = out
+         ctx_overflow, pocket_coords) = out
         return FABindOutput(
             coords=coords, lig_mask=batch.lig_mask, y_pred=y_pred,
             y_pred_by_coord=y_by_coord, dis_map_target=dis_map,
@@ -273,7 +275,8 @@ class FABind(nn.Module):
             use_stage2=use_stage2, keep_less_5=keep_less_5,
             pocket_overflow=overflow, ctx_overflow=ctx_overflow,
             pkt_idx=pkt_idx, pkt_mask=pkt_mask,
-            pocket_radius_pred=radius_pred, confidence=confidence)
+            pocket_radius_pred=radius_pred, confidence=confidence,
+            pocket_coords=pocket_coords)
 
     # --------------------------------------------------------------- docking
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
@@ -281,7 +284,8 @@ class FABind(nn.Module):
               use_stage2: bool, ctx_k: int):
         """Build the docking complex from a pocket selection and run the
         complex model and the heads: (coords, y_pred, y_pred_by_coord,
-        dis_map_target, pair_valid, confidence, ctx_overflow)."""
+        dis_map_target, pair_valid, confidence, ctx_overflow,
+        pocket_coords)."""
         cfg = self.cfg
         pocket_emb = G.gather_nodes(protein_out, pkt_idx)        # [B, Np, C]
         pkt_xyz = G.gather_nodes(batch.prot_xyz, pkt_idx) * pkt_mask[..., None]
@@ -347,9 +351,14 @@ class FABind(nn.Module):
         dis_map = dis_map * pair_valid
 
         coords = cfg.unnormalize(coords_n)
+        # the docked pocket residues, as the docking model returns them (the
+        # input crop: the pocket is rigid)
+        pocket_coords = cfg.unnormalize(x_out[:, layout.pkt_slice])
         if cfg.is_plus:
             coords = coords + bias[:, None]
+            pocket_coords = pocket_coords + bias[:, None]
         coords = coords * batch.lig_mask[..., None]
+        pocket_coords = pocket_coords * pkt_mask[..., None]
 
         confidence = torch.zeros(batch.batch_size, dtype=h_out.dtype,
                                  device=h_out.device)
@@ -359,7 +368,7 @@ class FABind(nn.Module):
                 pooled = F.relu(self.ranking_mlp_pre(pooled))
             confidence = self.ranking_score_mlp(pooled)[..., 0]
         return (coords, y_pred, y_by_coord, dis_map, pair_valid, confidence,
-                ctx_overflow)
+                ctx_overflow, pocket_coords)
 
     # ------------------------------------------------------------- inference
     def inference_diag(self, batch: FABindBatch,

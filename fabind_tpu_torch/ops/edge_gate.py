@@ -13,14 +13,13 @@ attention directions over the same r [B, Na, Nb], u and w2:
 
 `phi_rank1_pair` computes both in one launch of the hand-written CUDA kernel
 (csrc/edge_gate.cu) on CUDA tensors, reading r once and never transposing it;
-`phi_rank1` runs the same kernel for one direction. On CPU tensors both take
-their plain PyTorch versions. The backward recomputes the plain version's
-VJP, as the TPU kernel's custom_vjp does.
+on CPU tensors it takes its plain PyTorch version. The backward recomputes
+the plain version's VJP, as the TPU kernel's custom_vjp does.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,8 +63,8 @@ def phi_rank1_pair_reference(l1_a: Tensor, l1_b: Tensor, r: Tensor,
 
 def phi_rank1_vjp(l1_v: Tensor, r: Tensor, u: Tensor, w2: Tensor, act: str,
                   grad_out: Tensor):
-    """Gradients of phi_rank1 w.r.t. (l1_v, r, u, w2): the VJP of the plain
-    version, recomputed from the saved inputs."""
+    """Gradients of one direction of the gate w.r.t. (l1_v, r, u, w2): the
+    VJP of the plain version, recomputed from the saved inputs."""
     with torch.enable_grad():
         args = [t.detach().requires_grad_() for t in (l1_v, r, u, w2)]
         out = phi_rank1_reference(*args, act=act)
@@ -83,13 +82,13 @@ def phi_rank1_pair_vjp(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,
             gw_ab + gw_ba)
 
 
-def check_inputs(l1_a: Optional[Tensor], l1_b: Tensor, r: Tensor, u: Tensor,
+def check_inputs(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,
                  w2: Tensor) -> Tuple[int, int, int, int]:
     """What the kernel takes: one device, one dtype of fp32/bf16, contiguous
-    l1_a [B,Na,H] (or None), l1_b [B,Nb,H], r [B,Na,Nb], u [H], w2 [H],
-    H <= MAX_H and a tile count that fits the launch. Returns (B, Na, Nb,
-    H); raises on anything else."""
-    tensors = [t for t in (l1_a, l1_b, r, u, w2) if t is not None]
+    l1_a [B,Na,H], l1_b [B,Nb,H], r [B,Na,Nb], u [H], w2 [H], H <= MAX_H
+    and a tile count that fits the launch. Returns (B, Na, Nb, H); raises
+    on anything else."""
+    tensors = (l1_a, l1_b, r, u, w2)
     if any(t.device != r.device for t in tensors):
         raise ValueError("edge_gate: inputs on different devices")
     if r.dtype not in _DTYPE_IDS or any(t.dtype != r.dtype for t in tensors):
@@ -97,17 +96,16 @@ def check_inputs(l1_a: Optional[Tensor], l1_b: Tensor, r: Tensor, u: Tensor,
                         f"{list(_DTYPE_IDS)}, got {[t.dtype for t in tensors]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("edge_gate: inputs must be contiguous")
-    if (l1_b.dim() != 3 or r.dim() != 3 or u.dim() != 1 or w2.dim() != 1
-            or (l1_a is not None and l1_a.dim() != 3)):
+    if (l1_a.dim() != 3 or l1_b.dim() != 3 or r.dim() != 3 or u.dim() != 1
+            or w2.dim() != 1):
         raise ValueError("edge_gate: expected l1_a [B,Na,H], l1_b [B,Nb,H], "
                          "r [B,Na,Nb], u [H], w2 [H]")
     B, Nb, H = l1_b.shape
     Na = r.shape[1]
     if (r.shape != (B, Na, Nb) or u.shape != (H,) or w2.shape != (H,)
-            or (l1_a is not None and l1_a.shape != (B, Na, H))):
+            or l1_a.shape != (B, Na, H)):
         raise ValueError(
-            f"edge_gate: shape mismatch l1_a "
-            f"{None if l1_a is None else tuple(l1_a.shape)} l1_b "
+            f"edge_gate: shape mismatch l1_a {tuple(l1_a.shape)} l1_b "
             f"{tuple(l1_b.shape)} r {tuple(r.shape)} u {tuple(u.shape)} "
             f"w2 {tuple(w2.shape)}")
     if H > MAX_H:
@@ -118,41 +116,24 @@ def check_inputs(l1_a: Optional[Tensor], l1_b: Tensor, r: Tensor, u: Tensor,
     return B, Na, Nb, H
 
 
-def _launch(l1_a: Optional[Tensor], l1_b: Tensor, r: Tensor, u: Tensor,
-            w2: Tensor, act: str) -> Tuple[Tensor, Optional[Tensor]]:
-    """One launch: phi_ab, and phi_ba when l1_a is given."""
+def _launch(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor, w2: Tensor,
+            act: str) -> Tuple[Tensor, Tensor]:
+    """One launch: (phi_ab, phi_ba)."""
     B, Na, Nb, H = check_inputs(l1_a, l1_b, r, u, w2)
     out_ab = torch.empty_like(r)
-    out_ba = (None if l1_a is None
-              else torch.empty((B, Nb, Na), dtype=r.dtype, device=r.device))
+    out_ba = torch.empty((B, Nb, Na), dtype=r.dtype, device=r.device)
     if r.numel() == 0:
         return out_ab, out_ba
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = KERNEL.lib.fabind_edge_gate_pair(
-            ptr(l1_a), l1_b.data_ptr(), r.data_ptr(), u.data_ptr(),
-            w2.data_ptr(), out_ab.data_ptr(), ptr(out_ba), B, Na, Nb, H,
-            _ACT_IDS[act], _DTYPE_IDS[r.dtype], stream)
+            l1_a.data_ptr(), l1_b.data_ptr(), r.data_ptr(), u.data_ptr(),
+            w2.data_ptr(), out_ab.data_ptr(), out_ba.data_ptr(), B, Na, Nb,
+            H, _ACT_IDS[act], _DTYPE_IDS[r.dtype], stream)
     if err != 0:
         raise RuntimeError(f"edge_gate kernel launch failed: CUDA error {err}")
     KERNEL.count_launch()
     return out_ab, out_ba
-
-
-class _PhiRank1(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, l1_v, r, u, w2, act):
-        ctx.save_for_backward(l1_v, r, u, w2)
-        ctx.act = act
-        return _launch(None, l1_v, r, u, w2, act)[0]
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        return (*phi_rank1_vjp(*ctx.saved_tensors, ctx.act, grad_out), None)
 
 
 class _PhiRank1Pair(torch.autograd.Function):
@@ -174,15 +155,6 @@ def _device_type(r: Tensor, act: str) -> str:
     if r.device.type not in ("cpu", "cuda"):
         raise ValueError(f"edge_gate: unsupported device {r.device}")
     return r.device.type
-
-
-def phi_rank1(l1_v: Tensor, r: Tensor, u: Tensor, w2: Tensor,
-              act: str = "silu") -> Tensor:
-    """One direction: the CUDA kernel for CUDA tensors (it launches or
-    raises), the plain version for CPU tensors."""
-    if _device_type(r, act) == "cpu":
-        return phi_rank1_reference(l1_v, r, u, w2, act)
-    return _PhiRank1.apply(l1_v, r, u, w2, act)
 
 
 def phi_rank1_pair(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,

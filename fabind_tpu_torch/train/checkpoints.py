@@ -12,7 +12,10 @@ orbax checkpoints):
 - a step directory appears only once complete (written under a temporary
   name, then renamed), so a run killed mid-save restores the step before.
 
-`save_params` / `load_params` write and read a bare model state dict.
+`save_params` / `load_params` write and read a bare model state dict;
+`load_weights` reads any of the files the CLIs take, and `load_into`
+loads them into a model, leaving a missing confidence head at its fresh
+init as the JAX package's `overlay` does.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import json
 import os
 import shutil
 import threading
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -118,3 +121,40 @@ def load_params(path: str) -> Dict[str, torch.Tensor]:
             raise FileNotFoundError(f"{path}: no checkpoint")
         return restored[0]["model"]
     return torch.load(path, map_location="cpu", weights_only=True)
+
+
+# parameters a checkpoint may lack: the FABind+ confidence head, trained
+# after the regression model (the JAX package's confidence_param_labels)
+HEAD_PREFIXES = ("ranking", "confidence")
+
+
+def load_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A model state dict from a released-format `.bin`/`.pt` checkpoint
+    (`convert.load_torch_checkpoint`), a `save_params` file, a
+    `TrainCheckpointer` directory, or a `cli.train` run directory (its
+    `ckpt/`)."""
+    if path.endswith((".bin", ".pt")):
+        from fabind_tpu_torch.train.convert import load_torch_checkpoint
+        return load_torch_checkpoint(path)
+    if os.path.isdir(os.path.join(path, "ckpt")):
+        path = os.path.join(path, "ckpt")
+    return load_params(path)
+
+
+def load_into(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]
+              ) -> List[str]:
+    """Load `state_dict` into `model`; parameters of the confidence head
+    (HEAD_PREFIXES) that the checkpoint lacks keep the model's values.
+    Returns those missing keys. A missing key outside the head, an unused
+    key or a shape mismatch raises: a wrong checkpoint must not load."""
+    want = model.state_dict()
+    missing = sorted(k for k in want if k not in state_dict)
+    unused = sorted(k for k in state_dict if k not in want)
+    bad = [k for k in missing if not k.startswith(HEAD_PREFIXES)]
+    if bad or unused:
+        raise ValueError(f"checkpoint does not fit the model: {len(bad)} "
+                         f"missing keys outside the confidence head "
+                         f"{bad[:5]}, {len(unused)} unused keys "
+                         f"{unused[:5]}")
+    model.load_state_dict(state_dict, strict=False)
+    return missing

@@ -1,6 +1,8 @@
-"""The loss stack of FABind training.
+"""The loss stack of FABind training, and the confidence head's ranking
+loss.
 
-Own copy of fabind_tpu/train/losses.py `fabind_losses`: masked means over
+Own copy of fabind_tpu/train/losses.py `fabind_losses` and
+`confidence_ranking_loss`. `fabind_losses`: masked means over
 the valid entries of dense tensors; trailing-batch padding duplicates
 (batch.sample_valid False) weigh zero in every term and metric. The
 pocket-cls BCE sums over the padded grid (legacy_padded_bce, the
@@ -12,6 +14,7 @@ import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from fabind_tpu_torch.config import ModelConfig, TrainConfig
 from fabind_tpu_torch.ops import geometry
@@ -169,3 +172,60 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
         "pocket_overflow": (out.pocket_overflow.float() * svf).sum() * stage2,
     }
     return total, metrics
+
+
+def confidence_ranking_loss(scores: Tensor, rmsds: Tensor,
+                            valid: Optional[Tensor] = None,
+                            loss_type: str = "logsigmoid",
+                            keep_cls_2a: bool = False,
+                            groups: Optional[Tensor] = None) -> Tensor:
+    """Pairwise ranking loss over scored poses [n]: a pose with the lower
+    RMSD should score higher. A pair (i, j) has i "better" when its RMSD is
+    strictly lower, or equal with the lower index (the orientation of a
+    stable sort), so every unordered valid pair counts once, ties included.
+    `valid` [n] masks padding entries out of every pair.
+
+    groups None: the mean over every pair of the flat set. groups [n]: pairs
+    form within a group (a complex's copies) only; each group's sum is
+    normalized by its own pair count and the groups that formed a pair are
+    averaged, the mean of the reference's one-complex steps.
+
+    loss_type "logsigmoid": -log sigmoid(s_better - s_worse);
+    "dynamic_hinge": relu((r_worse - r_better) - (s_better - s_worse)).
+    keep_cls_2a adds the BCE of the scores against RMSD < 2 A over the
+    valid entries."""
+    s = scores.float()
+    r = rmsds.float()
+    n = s.shape[0]
+    v = (torch.ones(n, dtype=torch.bool, device=s.device) if valid is None
+         else valid.bool())
+    idx = torch.arange(n, device=s.device)
+    better = ((r[:, None] < r[None, :])
+              | ((r[:, None] == r[None, :]) & (idx[:, None] < idx[None, :])))
+    better = better & v[:, None] & v[None, :]
+    if groups is not None:
+        better = better & (groups[:, None] == groups[None, :])
+    bf = better.float()
+    diff = s[:, None] - s[None, :]              # score(better) - score(worse)
+    if loss_type == "logsigmoid":
+        pair_loss = -F.logsigmoid(diff) * bf
+    elif loss_type == "dynamic_hinge":
+        margin = r[None, :] - r[:, None]        # rmsd(worse) - rmsd(better)
+        pair_loss = torch.relu(margin - diff) * bf
+    else:
+        raise ValueError(loss_type)
+    if groups is None:
+        loss = pair_loss.sum() / bf.sum().clamp(min=1.0)
+    else:
+        onehot = (groups[None, :] == groups.unique()[:, None]).float()
+        g_pairs = torch.einsum("gi,ij,gj->g", onehot, bf, onehot)
+        g_loss = torch.einsum("gi,ij,gj->g", onehot, pair_loss, onehot)
+        has = (g_pairs > 0).float()
+        loss = ((g_loss / g_pairs.clamp(min=1.0) * has).sum()
+                / has.sum().clamp(min=1.0))
+    if keep_cls_2a:
+        vf = v.float()
+        ce = ((bce_with_logits(s, (r < 2.0).float()) * vf).sum()
+              / vf.sum().clamp(min=1.0))
+        loss = loss + ce
+    return loss

@@ -15,7 +15,8 @@ Counterpart of fabind_tpu/train/trainer.py (`create_train_state`,
   JAX step differentiates through its cast. A second module instead of a
   functional call keeps the weights in place for a recomputation in the
   backward (cfg.remat). The FABind+ LayerNorm edge MLP keeps its
-  statistics in float32 in the copy, as in serving;
+  statistics in float32 in the copy, as in serving. Evaluation runs the
+  float32 master weights on the float32 batch, as the JAX eval step does;
 - a step whose loss or gradient norm is not finite changes nothing: no
   optimizer step, so the parameters, Adam's moments and count, the
   accumulator and the schedule stay as they were. Its metrics read 0 and
@@ -158,13 +159,11 @@ class Trainer:
     def eval_step(self, batch: FABindBatch, stage: int = 2,
                   bucket_cfg: Optional[FABindConfig] = None) -> FABindOutput:
         """The deterministic forward at `stage` (1: the precomputed pocket,
-        2: the predicted one), float32 outputs."""
-        cfg_b = bucket_cfg or self.cfg
-        model, b = self._compute(batch)
-        model.eval()
-        with torch.inference_mode():
-            out = model(b, stage=stage, train=False, shapes=cfg_b.shapes)
-        return output_float32(out)
+        2: the predicted one) of the float32 master weights on the float32
+        batch, whatever cfg.train.bf16 says: the JAX eval step runs
+        state.params, and bf16 is a property of the training step only."""
+        return eval_forward(self.model, batch, stage,
+                            (bucket_cfg or self.cfg).shapes)
 
     # ------------------------------------------------------------ state
     def state_dict(self) -> Dict:
@@ -178,6 +177,16 @@ class Trainer:
         self.model.load_state_dict(sd["model"], strict=True)
         self.optimizer.load_state_dict(sd["optimizer"])
         self.step = int(sd["step"])
+
+
+def eval_forward(model, batch: FABindBatch, stage: int = 2,
+                 shapes=None) -> FABindOutput:
+    """The deterministic forward of `model` at `stage` in the shape bucket
+    `shapes` (default the model's): the evaluation step of `cli.train` and
+    `cli.evaluate`."""
+    model.eval()
+    with torch.inference_mode():
+        return model(batch, stage=stage, train=False, shapes=shapes)
 
 
 def to_cpu(obj):

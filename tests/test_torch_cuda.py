@@ -1,10 +1,11 @@
 """The edge-gate CUDA kernel against its plain PyTorch version, on the card:
-its one-direction launch (phi_rank1) and its paired launch over both
-attention directions (phi_rank1_pair); and the serving engine on the card
-(bf16 against fp32, bucket routing, the protein-row cache, the launch count
-under threads; FABind+ against the CPU, seeded best-of-N sampling); and a
-training step on the card against the same step on the CPU, with the gate's
-gradients at a docking training shape.
+its launch over both attention directions (phi_rank1_pair); and the
+serving engine on the card (bf16 against fp32, bucket routing, the
+protein-row cache, the launch count under threads; FABind+ against the
+CPU, seeded best-of-N sampling); and a training step on the card against
+the same step on the CPU, with the gate's gradients at a docking training
+shape; and the evaluation and confidence paths on the card against the
+CPU.
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -20,9 +21,8 @@ import torch
 
 from fabind_tpu_torch.config import preset
 from fabind_tpu_torch.ops import edge_gate
-from fabind_tpu_torch.ops.edge_gate import (phi_rank1, phi_rank1_pair,
-                                            phi_rank1_pair_reference,
-                                            phi_rank1_reference)
+from fabind_tpu_torch.ops.edge_gate import (phi_rank1_pair,
+                                            phi_rank1_pair_reference)
 from fabind_tpu_torch.serve import DockingEngine
 
 pytestmark = pytest.mark.cuda
@@ -33,55 +33,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     return torch.device("cuda")
-
-
-def _inputs(shape, dtype, device, seed=0):
-    B, D, N, H = shape
-    g = torch.Generator().manual_seed(seed)
-    return tuple(torch.randn(*s, generator=g).to(device, dtype)
-                 for s in ((B, N, H), (B, D, N), (H,), (H,)))
-
-
-@pytest.mark.parametrize("act", ["silu", "relu"])
-@pytest.mark.parametrize("shape", [(8, 48, 160, 512), (2, 7, 11, 48)])
-def test_kernel_matches_plain_fp32(cuda, act, shape):
-    args = _inputs(shape, torch.float32, cuda)
-    before = edge_gate.KERNEL.launches
-    got = phi_rank1(*args, act=act)
-    torch.cuda.synchronize()
-    assert edge_gate.KERNEL.launches == before + 1
-    # the sum over H runs in another order than the plain einsum
-    torch.testing.assert_close(got, phi_rank1_reference(*args, act=act),
-                               atol=1e-4, rtol=1e-5)
-
-
-def test_kernel_matches_plain_bf16(cuda):
-    args = _inputs((2, 7, 11, 48), torch.bfloat16, cuda)
-    got = phi_rank1(*args, act="silu")
-    assert got.dtype == torch.bfloat16
-    # both compute in fp32 and round once to bf16
-    torch.testing.assert_close(got.float(),
-                               phi_rank1_reference(*args).float(),
-                               atol=1e-2, rtol=1e-2)
-
-
-def test_kernel_backward_matches_plain(cuda):
-    args = [t.requires_grad_() for t in _inputs((1, 5, 9, 16), torch.float32,
-                                                cuda)]
-    g = torch.randn(1, 5, 9, device=cuda)
-    got = torch.autograd.grad(phi_rank1(*args), args, g)
-    want = torch.autograd.grad(phi_rank1_reference(*args), args, g)
-    for a, b in zip(got, want):
-        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
-
-
-def test_kernel_rejects_bad_input(cuda):
-    l1_v, r, u, w2 = _inputs((1, 4, 8, 16), torch.float32, cuda)
-    with pytest.raises(ValueError, match="contiguous"):
-        phi_rank1(l1_v, r.transpose(1, 2).contiguous().transpose(1, 2),
-                  u, w2)
-    with pytest.raises(TypeError):
-        phi_rank1(l1_v.double(), r.double(), u.double(), w2.double())
 
 
 def _pair_inputs(shape, dtype, device, seed=0, wide=False):
@@ -158,6 +109,8 @@ def test_pair_kernel_rejects_bad_input(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         phi_rank1_pair(l1_a, l1_b, r.transpose(1, 2).contiguous()
                        .transpose(1, 2), u, w2)
+    with pytest.raises(TypeError):
+        phi_rank1_pair(*(t.double() for t in (l1_a, l1_b, r, u, w2)))
 
 
 # ---------------------------------------------------------------- serving
@@ -363,3 +316,132 @@ def test_train_step_on_card_matches_cpu(cuda):
     for n, g in g_cpu.items():
         tol = 1e-4 + 1e-4 * float(g.abs().max())
         assert float((g_gpu[n] - g).abs().max()) <= tol, n
+
+
+# ------------------------------------------------ evaluation and confidence
+def _npz_requests(root, n=5, iso=False):
+    """The in-bucket requests of _requests (and more) as an NPZ directory;
+    with `iso` each chain ligand carries [identity, reversed]."""
+    root.mkdir()
+    raws = [_raw(5, 12, 1), _raw(12, 40, 2), _raw(6, 14, 4), _raw(14, 44, 5),
+            _raw(9, 30, 6), _raw(7, 20, 7)][:n]
+    for i, raw in enumerate(raws):
+        extra = {}
+        if iso:
+            k = raw["lig_coords"].shape[0]
+            extra["isomorphisms"] = np.stack(
+                [np.arange(k), np.arange(k)[::-1]]).astype(np.int32)
+        np.savez(root / f"c{i}.npz", **raw, **extra)
+    return str(root)
+
+
+def _sets(kw):
+    out = []
+    for k, v in kw.items():
+        out += ["--set", f"{k}={v}"]
+    return out
+
+
+def test_evaluate_on_card_matches_cpu(cuda, tmp_path):
+    """cli.evaluate (fp32, base, released depth at toy widths, stage 2,
+    --post-optim and --distmap-dock) on the card against the CPU: the same
+    per-pdb RMSDs within 1e-2 A, the gate launched 33 times per batch on
+    the card and never on the CPU."""
+    from fabind_tpu_torch.cli import evaluate
+    from fabind_tpu_torch.models.fabind import init_params, make_model
+
+    data = _npz_requests(tmp_path / "npz")
+    cfg = preset("fabind", **ENGINE_KW)
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), tmp_path / "w.bin")
+    rows = {}
+    for dev in ("cpu", "cuda"):
+        before = edge_gate.KERNEL.launches
+        m = evaluate.main(["--data", data, "--ckpt", str(tmp_path / "w.bin"),
+                           "--batch-size", "2", "--workers", "0",
+                           "--post-optim", "--post-optim-steps", "20",
+                           "--save-rmsd", str(tmp_path / f"{dev}.txt"),
+                           "--device", dev] + _sets(ENGINE_KW))
+        n_batches = -(-m["n"] // 2)
+        assert edge_gate.KERNEL.launches - before == (
+            0 if dev == "cpu" else LAUNCHES_PER_BATCH * n_batches)
+        rows[dev] = [line.split() for line in
+                     (tmp_path / f"{dev}.txt").read_text().splitlines()]
+    assert [r[0] for r in rows["cpu"]] == [r[0] for r in rows["cuda"]]
+    for a, b in zip(rows["cpu"], rows["cuda"]):
+        assert abs(float(a[1]) - float(b[1])) <= 1e-2, (a, b)
+    dock = ["--data", data, "--ckpt", str(tmp_path / "w.bin"),
+            "--batch-size", "2", "--workers", "0", "--distmap-dock",
+            "--distmap-steps", "200", "--distmap-repeats", "2",
+            "--device", "cuda"] + _sets(ENGINE_KW)
+    a, b = evaluate.main(dock), evaluate.main(dock)
+    a.pop("complexes_per_sec"), b.pop("complexes_per_sec")
+    assert a == b and np.isfinite(a["rmsd_mean"])
+
+
+def test_distance_dock_on_card_matches_cpu(cuda):
+    """distance_dock_best_of from the same starts (the smooth L2 mode,
+    600 steps) on the card and the CPU: the same winners, poses within
+    1e-3 A."""
+    from fabind_tpu_torch.postopt import distance_dock_best_of
+
+    g = torch.Generator().manual_seed(0)
+    B, Np, Nc, R = 3, 10, 7, 2
+    prot = torch.randn(B, Np, 3, generator=g) * 4
+    pose = torch.randn(B, Nc, 3, generator=g) * 1.5
+    ref = pose + 0.05 * torch.randn(B, Nc, 3, generator=g)
+    y = torch.cdist(prot, pose).clamp(max=10.0)
+    am = torch.ones(B, Nc, dtype=torch.bool)
+    pm = torch.ones(B, Np, dtype=torch.bool)
+    las = (torch.ones(Nc, Nc, dtype=torch.bool).triu(1)
+           & ~torch.ones(Nc, Nc, dtype=torch.bool).triu(3))
+    las = (las | las.T).expand(B, Nc, Nc)
+    x0s = pose + 2.0 * torch.randn(R, B, Nc, 3, generator=g)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        best, _, losses = distance_dock_best_of(
+            *(t.to(dev) for t in (y, prot, ref, las, am, pm)), n_repeat=R,
+            steps=600, mode=1, x0s=x0s.to(dev))
+        out[dev] = (best.cpu(), losses.argmin(0).cpu())
+    assert torch.equal(out["cpu"][1], out["cuda"][1])
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-3,
+                               rtol=0)
+
+
+def test_confidence_step_on_card_matches_cpu(cuda):
+    """One inference-source confidence step (FABind+ at toy widths, dropout
+    0) on the card against the CPU from the same copy inputs: the same
+    loss and metrics within 1e-3, the trunk unchanged on the card, no
+    gradient in it, no gate launch."""
+    from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays
+    from fabind_tpu_torch.models.fabind import init_params, make_model
+    from fabind_tpu_torch.train import confidence as conf
+
+    cfg = preset("fabind_plus", **ENGINE_KW, dropout=0.0,
+                 random_n_iter=False, confidence_training=True, num_copies=3)
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    sd = {k: v.clone() for k, v in model.state_dict().items()}
+    arrays = dummy_arrays(cfg.shapes, batch_size=2, seed=1, n_lig_valid=10,
+                          n_prot_valid=40)
+    init, cent = conf.sample_copy_inputs(
+        model, FABindBatch.from_numpy(arrays, "cpu"), cfg, 3,
+        np.random.RandomState(0))
+    res = {}
+    for dev in ("cpu", "cuda"):
+        m = make_model(cfg)
+        m.load_state_dict(sd)
+        m.to(dev)
+        step = conf.make_confidence_train_step(
+            m, cfg, conf.build_confidence_optimizer(cfg, m), "inference")
+        before = edge_gate.KERNEL.launches
+        res[dev] = step(FABindBatch.from_numpy(arrays, dev),
+                        torch.Generator().manual_seed(0), init, cent)
+        assert edge_gate.KERNEL.launches == before
+        for n, p in m.named_parameters():
+            if not n.startswith(("ranking", "confidence")):
+                assert p.grad is None and torch.equal(p.detach().cpu(),
+                                                      sd[n]), n
+    for k, v in res["cpu"].items():
+        assert abs(res["cuda"][k] - v) <= 1e-3, (k, res["cuda"][k], v)

@@ -1,9 +1,9 @@
 """The port's edge gate (fabind_tpu_torch/ops/edge_gate.py) against the JAX
 package's, on the CPU.
 
-On the CPU `phi_rank1` and `phi_rank1_pair` are the plain PyTorch versions;
-they are held to the JAX reference (the pair to two calls of it) and to the
-Pallas kernel run in interpret mode, as tests/test_pallas_edge_gate.py runs
+On the CPU `phi_rank1_pair` is the plain PyTorch version; it and the
+one-direction plain version are held to the JAX reference (the pair to two
+calls of it) and to the Pallas kernel run in interpret mode, as tests/test_pallas_edge_gate.py runs
 it. The CUDA kernel itself is held to the
 plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
@@ -17,8 +17,7 @@ from fabind_tpu.ops.pallas.edge_gate import (phi_rank1_pallas,
                                              phi_rank1_reference as jax_ref)
 
 from fabind_tpu_torch.ops import edge_gate
-from fabind_tpu_torch.ops.edge_gate import (check_inputs, phi_rank1,
-                                            phi_rank1_pair,
+from fabind_tpu_torch.ops.edge_gate import (check_inputs, phi_rank1_pair,
                                             phi_rank1_pair_reference,
                                             phi_rank1_pair_vjp,
                                             phi_rank1_reference,
@@ -45,17 +44,6 @@ def test_plain_matches_jax_reference_and_pallas(act, D):
     np.testing.assert_allclose(got, pallas, atol=ATOL, rtol=0)
 
 
-def test_wrapper_takes_plain_version_on_cpu():
-    args = tuple(map(torch.from_numpy, _inputs(1)))
-    before = edge_gate.KERNEL.launches
-    out = phi_rank1(*args, act="silu")
-    assert edge_gate.KERNEL.launches == before
-    torch.testing.assert_close(out, phi_rank1_reference(*args), atol=0,
-                               rtol=0)
-    with pytest.raises(ValueError):
-        phi_rank1(*args, act="gelu")
-
-
 @pytest.mark.parametrize("act", ["silu", "relu"])
 def test_gradient_matches_jax_grad(act):
     """The autograd backward (phi_rank1_vjp, the VJP of the plain version)
@@ -70,9 +58,10 @@ def test_gradient_matches_jax_grad(act):
     for a, b in zip(got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL,
                                    rtol=1e-5)
-    # the CPU path differentiates the plain version directly
+    # autograd through the plain version gives the same gradients
     targs = [torch.from_numpy(a).requires_grad_() for a in args]
-    (phi_rank1(*targs, act=act) * torch.from_numpy(g)).sum().backward()
+    (phi_rank1_reference(*targs, act=act)
+     * torch.from_numpy(g)).sum().backward()
     for t, b in zip(targs, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(b), atol=ATOL,
                                    rtol=1e-5)
@@ -178,7 +167,6 @@ def test_check_inputs():
     ValueError or TypeError for what the kernel does not take."""
     l1_a, l1_b, r, u, w2 = map(torch.from_numpy, _pair_inputs(10))
     assert check_inputs(l1_a, l1_b, r, u, w2) == (2, 7, 11, 40)
-    assert check_inputs(None, l1_b, r, u, w2) == (2, 7, 11, 40)
     with pytest.raises(ValueError, match="shape mismatch"):
         check_inputs(l1_b, l1_a, r, u, w2)
     with pytest.raises(ValueError, match="contiguous"):
@@ -188,4 +176,4 @@ def test_check_inputs():
         check_inputs(l1_a.double(), l1_b, r, u, w2)
     big = torch.zeros(1, 1, edge_gate.MAX_H + 1)
     with pytest.raises(ValueError, match="exceeds"):
-        check_inputs(None, big, torch.zeros(1, 1, 1), big[0, 0], big[0, 0])
+        check_inputs(big, big, torch.zeros(1, 1, 1), big[0, 0], big[0, 0])

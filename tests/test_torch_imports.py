@@ -24,7 +24,9 @@ def test_port_and_chip_smoke_import_no_jax():
               "serve_http", "cli.serve", "sample", "train.losses",
               "train.schedule", "train.trainer", "train.checkpoints",
               "data.torsion", "data.dataset", "utils.metrics",
-              "utils.logging_utils", "cli.train"):
+              "utils.logging_utils", "cli.train", "cli.common",
+              "cli.evaluate", "cli.sample", "cli.train_confidence",
+              "train.confidence"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -60,3 +62,17 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(cfg)
     assert Trainer(cfg, "cpu").device.type == "cpu"
+
+
+@pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence"])
+def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
+    """Without --device cpu the CLIs run on CUDA, and raise without it
+    (before reading anything)."""
+    import importlib
+    mod = importlib.import_module(f"fabind_tpu_torch.cli.{cli}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--data", str(tmp_path)]
+    if cli != "train_confidence":
+        argv += ["--ckpt", str(tmp_path / "none.bin")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        mod.main(argv)

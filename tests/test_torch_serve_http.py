@@ -293,7 +293,7 @@ def test_cli_serve_refuses_what_is_not_ported(monkeypatch):
     from fabind_tpu_torch.cli import serve as cs
 
     _capture_serve(monkeypatch)
-    with pytest.raises(SystemExit, match="dataset reader"):
+    with pytest.raises(SystemExit, match="requires --data"):
         cs.main(["--buckets", "auto", "--device", "cpu"] + _TINY_SET)
     with pytest.raises(NotImplementedError, match="fabflex"):
         cs.main(["--preset", "fabflex", "--device", "cpu"])
