@@ -71,16 +71,37 @@ Phases, each of which raises on failure (non-zero exit):
      pass with a line per complex, the same seed the same JSON). Times:
      evaluation complexes/s, ms per batch of --post-optim and
      --distmap-dock, confidence step ms and peak memory per pose source,
-     cli.sample complexes/s, the phase's wall time.
+     cli.sample complexes/s, the phase's wall time;
+  9. structure files: phase 3's 32 requests written as PDB files (a seeded
+     sequence, N/CA/C/O per residue) and V2000 SDF files (C/N/O/S heavy
+     atoms, one or two rings, explicit H); the ESM2 t33 encoder at full
+     width (650M parameters, seeded random weights) embeds their sequences
+     on the card in fp32 (finite [len, 1280]; two sequences against the
+     same weights on the CPU; one alone against it in a batch);
+     `DockingEngine.dock_sdf` (bf16, phase 3's buckets) on the 32 pairs:
+     one finite pose per request, 33 gate launches per batch, poses equal
+     to dock_raw on the raws it built, a second call without an ESM2
+     forward, randomize_init seeded, kernel vs plain gate within phase 3's
+     bound; `/dock_sdf` through the daemon (its sdf field parsed back
+     within 1e-4 A of the pose, a ligand path refused); `cli.inference
+     --ligand-sdf-dir` and `cli.preprocess` esm and inference in process
+     with an encoder cut to 2 layers (full width) saved as a state dict:
+     the SDFs and index against an in-process engine, the .npy files equal
+     to embed_sequences, the NPZ directory read back and docked. Times:
+     ESM2 ms per batch of 4 per padded length and TFLOP/s, sequences/s,
+     dock_sdf complexes/s cold (ESM2 included) and warm, peak memory, the
+     phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
-beside PATH, the bucket in its name, for base and for FABind+, and one of a
-training step (large bucket, fp32 and bf16).
+beside PATH, the bucket in its name, for base and for FABind+, one of a
+training step (large bucket, fp32 and bf16), and one of an ESM2 forward
+(batch 4 x 512).
 """
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import gc
 import io
@@ -93,13 +114,17 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
+import zlib
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from fabind_tpu_torch.cli import evaluate as cli_evaluate
+from fabind_tpu_torch.cli import inference as cli_inference
+from fabind_tpu_torch.cli import preprocess as cli_preprocess
 from fabind_tpu_torch.cli import sample as cli_sample
 from fabind_tpu_torch.cli import train as cli_train
 from fabind_tpu_torch.cli import train_confidence as cli_train_confidence
@@ -108,9 +133,15 @@ from fabind_tpu_torch.data.batching import build_sample
 from fabind_tpu_torch.data.buckets import (resolve_buckets, route_sample,
                                            sort_bucket_cfgs)
 from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.featurize import (THREE_TO_ONE,
+                                             extract_protein_structure,
+                                             featurize_sdf, parse_sdf,
+                                             parse_sdf_text, write_sdf)
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models import layers
 from fabind_tpu_torch.models.att_model import EfficientMCAttModel
+from fabind_tpu_torch.models.esm2 import (PAD_ID, Esm2Config, Esm2Model,
+                                         load_esm2, tokenize)
 from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.models.layers import dropout_rng
 from fabind_tpu_torch.ops import edge_gate
@@ -216,6 +247,26 @@ SAMPLE_PASSES = 8
 # the confidence score's output bias: a pure ranking loss sees score
 # differences only, so its gradient is 0 and it need not move
 SCORE_BIAS = "ranking_score_mlp.linear2.bias"
+# structure files (phase 9): where the PDB/SDF files and the CLIs' outputs
+# go (git-ignored); the encoder's seed and rows per forward; the CLIs'
+# encoder, full width cut to this many layers (the full one's state dict
+# would be 2.6 GB); the randomize_init seed
+SDF_ROOT = Path("build/chip_smoke_sdf")
+ESM_SEED = 9
+ESM_BATCH = 4
+ESM_CLI_LAYERS = 2
+SDF_SEED = 5
+# the fp32 encoder on the card (TF32 off) vs the CPU, and one sequence alone
+# vs inside a batch: the same arithmetic summed in other orders over 33
+# layers, outputs O(1) after the final LayerNorm
+ESM_CPU_ATOL = 1e-3
+ESM_BATCH_ATOL = 1e-3
+# synthetic structure files: backbone atoms around each CA, valences of the
+# ligands' heavy atoms, residue letters to names
+BACKBONE_OFFSETS = {"N": (-1.2, 0.6, 0.0), "CA": (0.0, 0.0, 0.0),
+                    "C": (1.2, 0.6, 0.0), "O": (1.4, 1.8, 0.0)}
+VALENCE = {"C": 4, "N": 3, "O": 2, "S": 2}
+ONE_TO_THREE = {v: k for k, v in THREE_TO_ONE.items()}
 
 
 def check(ok: bool, what: str) -> None:
@@ -1631,13 +1682,426 @@ def eval_phase(raws, card_line):
     return {torch.float32: by_bucket}
 
 
+# ------------------------------------------------- 9. structure files
+def pdb_line(serial, name, resname, chain, resseq, xyz, occ=1.0, alt=" ",
+             icode=" ", rec="ATOM  ") -> str:
+    """One fixed-column PDB atom record."""
+    return (f"{rec}{serial:5d} {name:<4s}{alt}{resname:3s} {chain}"
+            f"{resseq:4d}{icode}   {xyz[0]:8.3f}{xyz[1]:8.3f}{xyz[2]:8.3f}"
+            f"{occ:6.2f}{0.0:6.2f}          {name[0]:>2s}\n")
+
+
+def pdb_text(seq: str, ca) -> str:
+    """A one-chain PDB file: N, CA, C and O of every residue of `seq`, the
+    backbone atoms at fixed offsets from the given CA positions."""
+    lines, serial = [], 1
+    for i, (aa, xyz) in enumerate(zip(seq, np.asarray(ca, np.float64))):
+        for name, off in BACKBONE_OFFSETS.items():
+            lines.append(pdb_line(serial, name, ONE_TO_THREE[aa], "A", i + 1,
+                                  xyz + off))
+            serial += 1
+    return "".join(lines) + "END\n"
+
+
+def ligand_with_hydrogens(rng, xyz, n_rings: int):
+    """(symbols, coords, bonds) of a ligand whose heavy atoms sit at `xyz`
+    (a chain in that order): chain bonds, `n_rings` six-ring closures
+    (i, i + 5), C/N/O/S heavy atoms (ring and branch atoms carbon, so no
+    valence is exceeded), and explicit hydrogens at 1.0 A filling every
+    heavy atom's valence."""
+    n = len(xyz)
+    bonds = [(i, i + 1, 1.0) for i in range(n - 1)]
+    for s in rng.choice(n - 5, n_rings, replace=False):
+        bonds.append((int(s), int(s) + 5, 1.0))
+    degree = np.zeros(n, int)
+    for i, j, _ in bonds:
+        degree[i] += 1
+        degree[j] += 1
+    symbols = ["C" if d > 2 else str(rng.choice(["C", "C", "C", "N", "O",
+                                                 "S"]))
+               for d in degree]
+    coords = [np.asarray(x, np.float64) for x in xyz]
+    for a in range(n):
+        for _ in range(VALENCE[symbols[a]] - degree[a]):
+            v = rng.randn(3)
+            coords.append(coords[a] + v / np.linalg.norm(v))
+            bonds.append((a, len(symbols), 1.0))
+            symbols.append("H")
+    return symbols, np.asarray(coords, np.float32), bonds
+
+
+def write_structures(raws, root: Path, seed: int):
+    """Each request as files: its protein as p{i}.pdb (a seeded sequence of
+    standard residues, backbone atoms around its CA positions) and its
+    ligand as l{i}.sdf (V2000, its atoms as the heavy atoms, one or two
+    rings, explicit H). Returns [(sdf path, pdb path, sequence)]."""
+    rng = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    out = []
+    for i, raw in enumerate(raws):
+        seq = "".join(rng.choice(list(ONE_TO_THREE), len(raw["protein_xyz"])))
+        pdb = root / f"p{i}.pdb"
+        pdb.write_text(pdb_text(seq, raw["protein_xyz"]))
+        symbols, coords, bonds = ligand_with_hydrogens(
+            rng, raw["lig_coords"], n_rings=1 + i % 2)
+        sdf = root / f"l{i}.sdf"
+        write_sdf(str(sdf), symbols, coords, bonds, name=f"l{i}")
+        out.append((str(sdf), str(pdb), seq))
+    return out
+
+
+def seeded_encoder(cfg: Esm2Config, seed: int, device) -> Esm2Model:
+    """Esm2Model(cfg) on `device` with seeded random weights drawn there:
+    Linear weights N(0, 0.02) and biases 0, LayerNorms at identity
+    (HuggingFace's init), word embeddings N(0, 1) (a trained checkpoint's
+    residual stream is O(1); at 0.02 the final LayerNorm would amplify
+    rounding ~50x)."""
+    with torch.device("meta"):
+        model = Esm2Model(cfg)
+    model = model.to_empty(device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "LayerNorm" in name or "layer_norm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 1.0 if "word_embeddings" in name else 0.02,
+                          generator=g)
+    return model.eval()
+
+
+def esm_flop(cfg: Esm2Config, B: int, L: int) -> float:
+    """Operations of one encoder forward over B x L tokens: the dense
+    products (q, k, v, output, two feed-forward) and the two attention
+    products, 2 per multiply-add."""
+    C, Fi = cfg.hidden_size, cfg.intermediate_size
+    dense = 2 * (4 * C * C + 2 * C * Fi) * B * L
+    return cfg.num_layers * (dense + 4 * B * L * L * C)
+
+
+def esm_checks(seqs, card_line, profile=None):
+    """The full-width encoder on the card: finite [len, 1280] embeddings of
+    every sequence, two sequences against the same weights on the CPU, one
+    alone against it in a batch, and its times (with `profile`, a profiler
+    table of one forward of the longest padded length). Returns the
+    encoder."""
+    cfg = Esm2Config()
+    held = reset_peak()
+    t0 = time.perf_counter()
+    esm = seeded_encoder(cfg, ESM_SEED, "cuda")
+    n_params = sum(p.numel() for p in esm.parameters())
+    print(f"sdf encoder: ESM2 t33 at full width ({cfg.num_layers} layers, "
+          f"hidden {cfg.hidden_size}, {cfg.num_heads} heads, FFN "
+          f"{cfg.intermediate_size}), {n_params / 1e6:.1f}M parameters, "
+          f"fp32, seeded random weights (seed {ESM_SEED}), built in "
+          f"{time.perf_counter() - t0:.2f} s")
+    runs = []
+    for _ in range(2):                # cold (first launch), then warm
+        t0 = time.perf_counter()
+        embs = esm.embed_sequences(seqs, batch_size=ESM_BATCH)
+        runs.append(time.perf_counter() - t0)
+    for s, e in zip(seqs, embs):
+        check(e.shape == (len(s), cfg.hidden_size) and e.dtype == np.float32,
+              f"embedding shape {e.shape} for {len(s)} residues")
+        check(bool(np.isfinite(e).all()), "finite embedding")
+    print(f"time sdf embed_sequences {len(seqs)} sequences of "
+          f"{min(map(len, seqs))}-{max(map(len, seqs))} residues, batch "
+          f"{ESM_BATCH}, fp32: cold {runs[0]:.3f} s, warm {runs[1]:.3f} s, "
+          f"{len(seqs) / runs[1]:.2f} sequences/s [{card_line}]")
+    print_peak("ESM2 encoder (weights and embed_sequences)", held, card_line)
+
+    pads = {}
+    for s in seqs:
+        pads.setdefault(-(-(len(s) + 2) // 128) * 128, []).append(s)
+    for pad, group in sorted(pads.items()):
+        rows = (group * ESM_BATCH)[:ESM_BATCH]
+        ids = torch.from_numpy(np.stack([tokenize(s, pad_to=pad)
+                                         for s in rows]).astype(np.int64)
+                               ).cuda()
+        mask = (ids != PAD_ID).to(torch.int32)
+        with torch.inference_mode():
+            ms = cuda_time_ms(lambda: esm(ids, mask), iters=5, warmup=1)
+        flop = esm_flop(cfg, ESM_BATCH, pad)
+        print(f"time sdf ESM2 forward batch {ESM_BATCH} x padded length "
+              f"{pad} ({len(group)} of the sequences): {ms:.2f} ms, "
+              f"{flop / 1e12:.3f} TFLOP, {flop / ms / 1e9:.1f} TFLOP/s "
+              f"(fp32 peak {PEAK_FP32_S / 1e12:.0f}) [{card_line}]")
+    if profile:
+        def sync_forward():
+            with torch.inference_mode():
+                esm(ids, mask)
+            torch.cuda.synchronize()
+
+        out = Path(profile)
+        profile_batch(sync_forward, str(out.with_name(
+            f"{out.stem}_esm2_{ESM_BATCH}x{pad}{out.suffix}")), ms,
+            f"ESM2 forward {ESM_BATCH} x {pad}", card_line)
+
+    two = sorted(range(len(seqs)), key=lambda i: len(seqs[i]))[:2]
+    with torch.device("meta"):
+        host = Esm2Model(cfg)
+    host = host.to_empty(device="cpu")
+    host.load_state_dict(esm.state_dict())
+    want = host.eval().embed_sequences([seqs[i] for i in two])
+    got = esm.embed_sequences([seqs[i] for i in two])
+    del host
+    err = max(float(np.abs(g - w).max()) for g, w in zip(got, want))
+    print(f"sdf encoder on the card vs the CPU, {[len(seqs[i]) for i in two]}"
+          f" residues, fp32: max abs difference {err:.3e} (limit "
+          f"{ESM_CPU_ATOL})")
+    check(err <= ESM_CPU_ATOL, f"encoder card vs CPU {err}")
+    alone = esm.embed_sequences([seqs[two[0]]])[0]
+    err = float(np.abs(alone - embs[two[0]]).max())
+    print(f"sdf encoder: a sequence alone vs inside a batch of {ESM_BATCH}: "
+          f"max abs difference {err:.3e} (limit {ESM_BATCH_ATOL})")
+    check(err <= ESM_BATCH_ATOL, f"encoder alone vs batched {err}")
+    return esm
+
+
+def dock_sdf_counted(engine, pairs, what, **kw):
+    """dock_sdf with the gate's counts set to 0 just before and read just
+    after: (poses, launches by bucket, seconds); every batch of a bucket
+    must launch the gate 33 times."""
+    counter = BucketLaunches(engine)
+    edge_gate.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    poses = engine.dock_sdf(pairs, **kw)
+    secs = time.perf_counter() - t0
+    launches = edge_gate.KERNEL.launches
+    del engine.run_batch
+    print(f"{what}: {len(poses)} poses in {secs:.3f} s, edge_gate launches "
+          f"{launches}, by bucket {counter.launches} in batches "
+          f"{counter.batches}")
+    check(sum(counter.launches.values()) == launches,
+          f"{what}: launches outside the batches")
+    per_batch = sum(s[-1] for s in served_pair_shapes(engine.cfg))
+    for label, n in counter.launches.items():
+        check(n == per_batch * counter.batches[label],
+              f"{what}: bucket {label} launched the gate {n} times in "
+              f"{counter.batches[label]} batches")
+    return poses, counter.launches, secs
+
+
+def same_poses(a, b) -> bool:
+    return all(x.error is None and y.error is None
+               and np.array_equal(x.coords, y.coords) for x, y in zip(a, b))
+
+
+def sdf_http_round_trip(engine, pairs, root):
+    """/dock_sdf through the daemon (ligands inline, proteins under
+    --pdb-root): each pose's `sdf` field, parsed back, holds the engine's
+    pose to 1e-4 A; a bare ligand path answers 400."""
+    srv = make_server(engine, "127.0.0.1", 0, pdb_root=str(root))
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    body = [{"sdf": Path(s).read_text(), "pdb": Path(p).name}
+            for s, p in pairs]
+
+    def post(entries):
+        req = urllib.request.Request(
+            base + "/dock_sdf", data=json.dumps(entries).encode(),
+            method="POST", headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    try:
+        status, got = post(body)
+        bad, _ = post([{"sdf": pairs[0][0], "pdb": Path(pairs[0][1]).name}])
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        t.join(timeout=60)
+    check(not t.is_alive(), "HTTP server thread stopped")
+    check(status == 200 and len(got) == len(pairs), f"/dock_sdf {status}")
+    check(bad == 400, f"/dock_sdf with a ligand path answered {bad}")
+    want = engine.dock_sdf([(b["sdf"], p) for b, (_, p) in zip(body, pairs)])
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g["error"] is None and w.error is None, "/dock_sdf pose error")
+        check(np.array_equal(np.asarray(g["coords"], np.float32), w.coords),
+              "/dock_sdf coords equal engine.dock_sdf's")
+        parsed = parse_sdf_text(g["sdf"])
+        check(parsed["symbols"] == w.sdf_meta["symbols"], "sdf symbols")
+        err = max(err, float(np.abs(parsed["coords"] - w.coords).max()))
+    print(f"http: /dock_sdf {len(got)} poses equal engine.dock_sdf's; the "
+          f"sdf field parsed back within {err:.2e} A of the pose (limit "
+          f"1e-4); a ligand path answered 400")
+    check(err <= 1e-4, f"/dock_sdf sdf field {err} A from the pose")
+
+
+def sdf_cli_checks(engine, files, card_line):
+    """cli.inference --ligand-sdf-dir, cli.preprocess esm and inference in
+    process, on an encoder cut to ESM_CLI_LAYERS layers (full width) saved
+    as a state dict, and the engine's seeded fp32 weights saved as a .pt."""
+    root = SDF_ROOT / "cli"
+    root.mkdir(parents=True, exist_ok=True)
+    inputs = Path(files[0][0]).parent
+    esm_cfg = Esm2Config(num_layers=ESM_CLI_LAYERS)
+    small = seeded_encoder(esm_cfg, ESM_SEED, "cuda")
+    torch.save(small.state_dict(), root / "esm.pt")
+    cfg = engine.cfg
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    sd = model.state_dict()
+    torch.save(sd, root / "fabind.pt")
+    print(f"sdf CLIs: encoder cut to {ESM_CLI_LAYERS} of 33 layers at full "
+          f"width ({(root / 'esm.pt').stat().st_size / 2**20:.0f} MiB state "
+          f"dict; the full encoder's would be 2.6 GB), docking weights "
+          f"seeded fp32")
+    n = len(files)
+    with open(root / "index.csv", "w") as f:
+        f.write("pdb_file,ligand_id,smiles\n")
+        f.writelines(f"p{i},l{i},\n" for i in range(n))
+    sets = [a for k, v in SMOKE_SHAPES.items() for a in ("--set", f"{k}={v}")]
+    out = root / "docked"
+    edge_gate.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    cli_inference.main(["--ckpt", str(root / "fabind.pt"), "--esm-weights",
+                        str(root / "esm.pt"), "--index",
+                        str(root / "index.csv"), "--pdb-dir", str(inputs),
+                        "--ligand-sdf-dir", str(inputs), "--output",
+                        str(out), "--batch-size", str(BATCH)] + sets)
+    secs = time.perf_counter() - t0
+    launches = edge_gate.KERNEL.launches
+    with open(out / "index.csv") as f:
+        rows = list(csv.DictReader(f))
+    check(len(rows) == n, f"cli.inference wrote {len(rows)} of {n} poses")
+    per_batch = sum(sh[-1] for sh in served_pair_shapes(cfg))
+    check(launches == per_batch * (-(-n // BATCH)),
+          f"cli.inference launched the gate {launches} times")
+    ref = DockingEngine(cfg, state_dict=sd, batch_size=BATCH, bf16=False,
+                        seed=0, esm=load_esm2(str(root / "esm.pt")))
+    want = ref.dock_sdf([(s, p) for s, p, _ in files])
+    del ref
+    err = 0.0
+    for i, (row, w) in enumerate(zip(rows, want)):
+        check(row["pdb"] == f"p{i}" and Path(row["sdf"]).name ==
+              f"p{i}_{zlib.crc32(f'l{i}'.encode()):08x}.sdf",
+              f"cli.inference index row {row}")
+        got = parse_sdf(row["sdf"])
+        check(got["symbols"] == w.sdf_meta["symbols"]
+              and got["bonds"] == [(i0, j0, 4 if o == 1.5 else int(o))
+                                   for i0, j0, o in w.sdf_meta["bonds"]],
+              f"cli.inference SDF {row['sdf']} atoms and bonds")
+        err = max(err, float(np.abs(got["coords"] - w.coords).max()))
+    print(f"cli.inference --ligand-sdf-dir: {len(rows)} SDFs and index.csv "
+          f"in {secs:.2f} s (fp32, engine and encoder load included), "
+          f"{launches} gate launches; each SDF within {err:.2e} A of an "
+          f"in-process engine's pose (limit 1e-4) [{card_line}]")
+    check(err <= 1e-4, f"cli.inference SDF {err} A from the engine's pose")
+
+    fasta = root / "seqs.fasta"
+    fasta.write_text("".join(f">p{i}\n{q}\n" for i, (_, _, q)
+                             in enumerate(files)))
+    cli_preprocess.main(["esm", "--seqs", str(fasta), "--out",
+                         str(root / "esm"), "--esm-weights",
+                         str(root / "esm.pt"), "--esm-batch",
+                         str(ESM_BATCH)])
+    want = small.embed_sequences([q for _, _, q in files],
+                                 batch_size=ESM_BATCH)
+    for i, w in enumerate(want):
+        check(np.array_equal(np.load(root / "esm" / f"p{i}.npy"), w),
+              f"cli.preprocess esm p{i}.npy equals embed_sequences")
+    del small
+    with open(root / "pairs.csv", "w") as f:
+        f.write("name,sdf,pdb_file\n")
+        f.writelines(f"c{i},{s},{p}\n" for i, (s, p, _) in enumerate(files))
+    cli_preprocess.main(["inference", "--index", str(root / "pairs.csv"),
+                         "--out", str(root / "npz"), "--esm-weights",
+                         str(root / "esm.pt")])
+    src, names = open_source(str(root / "npz"))
+    check(len(names) == n, f"cli.preprocess inference wrote {len(names)}")
+    raws = [src.get(k) for k in names]
+    poses, _, _, _ = serve_main_path(engine, raws, "sdf NPZ directory")
+    print(f"cli.preprocess: esm {n} .npy equal to embed_sequences; "
+          f"inference {len(names)} NPZ files read back by NPZSource and "
+          f"docked ({len(poses)} finite poses)")
+
+
+def sdf_phase(raws, buckets, card_line, profile=None):
+    """Phase 9: the structure-file path on the card. Returns dock_sdf's
+    gate launches by bucket (bf16)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SDF_ROOT, ignore_errors=True)
+    files = write_structures(raws, SDF_ROOT / "inputs", REQUEST_SEED)
+    pairs = [(s, p) for s, p, _ in files]
+    t0 = time.perf_counter()
+    for sdf, pdb in pairs:
+        extract_protein_structure(pdb)
+        featurize_sdf(sdf)
+    host_s = time.perf_counter() - t0
+    print(f"time sdf host parse and featurize {len(pairs)} PDB + SDF pairs: "
+          f"{host_s * 1e3 / len(pairs):.2f} ms per pair [{card_line}]")
+    esm = esm_checks([q for _, _, q in files], card_line, profile)
+
+    held = reset_peak()
+    engine = DockingEngine(preset("fabind", **SMOKE_SHAPES), buckets=buckets,
+                           batch_size=BATCH, seed=0, esm=esm)
+    engine.warmup()
+    embeds, captured = [], []
+    embed, dock_raw = esm.embed_sequences, engine.dock_raw
+    esm.embed_sequences = lambda *a, **k: embeds.append(a[0]) or embed(
+        *a, **k)
+    engine.dock_raw = lambda rs: captured.append(rs) or dock_raw(rs)
+    poses, launches, cold_s = dock_sdf_counted(engine, pairs,
+                                               "dock_sdf (cold)")
+    del engine.dock_raw
+    check_poses(poses, raws, "dock_sdf")
+    check(len(embeds) == len(files), f"{len(embeds)} ESM2 forwards for "
+          f"{len(files)} proteins")
+    check(same_poses(engine.dock_raw(captured[0]), poses),
+          "dock_sdf equals dock_raw on the raws it built")
+    warm, _, warm_s = dock_sdf_counted(engine, pairs, "dock_sdf (warm)")
+    check(len(embeds) == len(files), "the warm call ran an ESM2 forward")
+    check(same_poses(warm, poses), "warm dock_sdf equals the cold call")
+    engine._protein_cache.clear()
+    _, _, cold2_s = dock_sdf_counted(engine, pairs, "dock_sdf (cold again)")
+    print(f"time dock_sdf {len(pairs)} complexes bf16: cold (parse, ESM2 "
+          f"fp32 and docking) {len(pairs) / cold2_s:.2f} complexes/s "
+          f"({len(pairs) / cold_s:.2f} at the first call), warm (proteins "
+          f"cached) {len(pairs) / warm_s:.2f} complexes/s [{card_line}]")
+    print_peak("dock_sdf engine with the encoder", held, card_line)
+
+    r1, r2, r3 = (engine.dock_sdf(pairs, randomize_init=True, seed=k)
+                  for k in (SDF_SEED, SDF_SEED, SDF_SEED + 1))
+    check_poses(r1, raws, "dock_sdf randomize_init")
+    check(same_poses(r1, r2), "randomize_init: the same seed, other poses")
+    check(not same_poses(r1, r3), "randomize_init: another seed, same poses")
+    orig = layers.phi_rank1_pair
+    layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
+    try:
+        plain = engine.dock_sdf(pairs)
+    finally:
+        layers.phi_rank1_pair = orig
+    d = pose_dist(poses, plain)
+    print(f"dock_sdf bf16 kernel vs plain gate: per-atom distance mean "
+          f"{d.mean():.3e} A, max {d.max():.3e} A (mean limit "
+          f"{BF16_POSE_MEAN_TOL_A} A); randomize_init seeded bit for bit")
+    check(d.mean() <= BF16_POSE_MEAN_TOL_A, f"dock_sdf kernel vs plain {d}")
+    sdf_http_round_trip(engine, pairs[:BATCH], SDF_ROOT / "inputs")
+    del esm.embed_sequences
+    sdf_cli_checks(engine, files, card_line)
+    del engine, esm
+    shutil.rmtree(SDF_ROOT, ignore_errors=True)
+    print(f"time phase 9 (structure files) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return {torch.bfloat16: launches}
+
+
 def time_kernel_rows(served, max_err, launches, train_launches,
-                     eval_launches, sms, clock_hz, card_line):
+                     eval_launches, sdf_launches, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
     per batch, with the serving path's launch counts; and one per (dtype,
-    bucket) of the training path and of the evaluation path (fp32 only;
-    their batches have the served shapes), with their launch counts."""
+    bucket) of the training path, of the evaluation path (fp32 only) and of
+    the dock_sdf path (bf16 only), with their launch counts (their batches
+    have the served shapes)."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -1664,7 +2128,8 @@ def time_kernel_rows(served, max_err, launches, train_launches,
                   f"MUFU floor {f_ms:.4f} ms; device time per batch "
                   f"{k_ms * n:.4f} ms [{card_line}]")
             for path, counts in (("", launches), ("train ", train_launches),
-                                 ("evaluate ", eval_launches)):
+                                 ("evaluate ", eval_launches),
+                                 ("dock_sdf ", sdf_launches)):
                 if dtype not in counts:
                     continue
                 rows.append({
@@ -1683,8 +2148,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", metavar="PATH",
                     help="write a torch.profiler table of one bf16 batch "
-                         "of each bucket, and of one training step in fp32 "
-                         "and bf16, beside PATH")
+                         "of each bucket, of one training step in fp32 "
+                         "and bf16, and of one ESM2 forward, beside PATH")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1815,9 +2280,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     eval_launches = eval_phase(raws, card_line)
 
+    # ---- 9. structure files: ESM2, dock_sdf, /dock_sdf and the CLIs
+    torch.cuda.empty_cache()
+    sdf_launches = sdf_phase(raws, buckets, card_line, args.profile)
+
     # ---- 4b. kernel times
     rows = time_kernel_rows(served, max_err, main_launches, train_launches,
-                            eval_launches, sms, clock_hz, card_line)
+                            eval_launches, sdf_launches, sms, clock_hz,
+                            card_line)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

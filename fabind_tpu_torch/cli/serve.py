@@ -7,9 +7,12 @@ Usage:
       [--host 127.0.0.1] [--port 8400] [--batch-size 8] [--no-bf16] \
       [--post-optim-steps N] [--warmup] \
       [--buckets l:p:r,l:p:r | --buckets auto[:K] --data NPZ_DIR] \
-      [--set KEY=VALUE ...] [--device cuda|cpu]
+      [--set KEY=VALUE ...] [--device cuda|cpu] \
+      [--esm-weights PATH] [--pdb-root DIR]
 
 Without --ckpt the engine serves seeded random weights (smoke tests only).
+/dock_sdf needs --esm-weights (models.esm2.load_esm2: a local HuggingFace
+ESM2 directory or state dict) to embed its proteins.
 """
 from __future__ import annotations
 
@@ -41,6 +44,13 @@ def main(argv=None):
     p.add_argument("--warmup", action="store_true",
                    help="run one batch in every bucket before binding the "
                         "port")
+    p.add_argument("--pdb-root", default=None,
+                   help="restrict /dock_sdf requests to PDB files under "
+                        "this directory (path-checked); without it "
+                        "/dock_sdf accepts any path on the server")
+    p.add_argument("--esm-weights", default=None, metavar="PATH",
+                   help="ESM2 encoder for /dock_sdf's proteins: a local "
+                        "HuggingFace directory or torch state dict")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
@@ -72,16 +82,20 @@ def main(argv=None):
     if args.ckpt is not None:
         from fabind_tpu_torch.train.convert import load_torch_checkpoint
         state_dict = load_torch_checkpoint(args.ckpt)
+    esm = None
+    if args.esm_weights is not None:
+        from fabind_tpu_torch.models.esm2 import load_esm2
+        esm = load_esm2(args.esm_weights)
     engine = DockingEngine(cfg, state_dict=state_dict, buckets=buckets,
                            batch_size=args.batch_size,
                            bf16=not args.no_bf16,
                            post_optim_steps=args.post_optim_steps,
-                           device=args.device)
+                           device=args.device, esm=esm)
     if args.warmup:
         print(f"warming up {len(engine.bucket_cfgs)} bucket(s)...",
               flush=True)
         print(f"warmup done in {engine.warmup():.1f}s", flush=True)
-    serve_forever(engine, args.host, args.port)
+    serve_forever(engine, args.host, args.port, pdb_root=args.pdb_root)
 
 
 if __name__ == "__main__":

@@ -16,18 +16,28 @@ come back in the world frame of the input structure.
   once per bucket.
 - FABind+ presets serve the same way; `dock_best_of` runs best-of-N
   sampling (sample.py) and keeps each request's most confident pose.
+- `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
+  and featurized on the host without RDKit (data/featurize.py), each
+  protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
+  in a host LRU, and each Pose carries what `featurize.write_sdf` needs to
+  write the docked ligand.
 
 Example:
     eng = DockingEngine(preset("fabind"), state_dict=sd)   # on the GPU, bf16
     poses = eng.dock_raw(raws)
     poses[0].coords    # [n_atoms, 3] float32
+    sdf_poses = DockingEngine(preset("fabind"), state_dict=sd,
+                              esm=load_esm2("esm2_t33_650M/")
+                              ).dock_sdf([("lig.sdf", "prot.pdb")])
     best = DockingEngine(preset("fabind_plus_sampling"), state_dict=sd_plus
                          ).dock_best_of(raws, sample_size=40, seed=0)
 
 Thread safety: every dock_* method may be called from several threads at
 once. The protein-row cache is read and filled under an RLock; the model runs
 outside it (its forward keeps no state), so concurrent calls interleave at
-batch granularity and give the poses of serial calls. `dock_best_of` turns
+batch granularity and give the poses of serial calls. A protein's ESM2
+forward runs under a lock of its own path, not the engine's, so it does not
+stall requests for other proteins. `dock_best_of` turns
 dropout on for its own thread only (layers.dropout_rng), so a concurrent
 dock_raw on the same engine stays deterministic.
 """
@@ -44,8 +54,11 @@ import numpy as np
 import torch
 
 from fabind_tpu_torch.config import FABindConfig
-from fabind_tpu_torch.data.batching import SampleTooLarge, build_sample, collate
+from fabind_tpu_torch.data import featurize as F
+from fabind_tpu_torch.data.batching import (SampleTooLarge, build_sample,
+                                            collate, uniform_random_rotation)
 from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
+from fabind_tpu_torch.data.torsion import randomize_torsions
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays, to_device
 from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.postopt import post_optimize_batch
@@ -55,6 +68,7 @@ from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
                                               cast_tensor_bf16)
 
 _PROT_FIELDS = ("prot_feat", "prot_mask", "prot_xyz")
+_PROTEIN_LRU = 256      # proteins whose structure and embedding are kept
 
 
 @dataclass
@@ -64,6 +78,8 @@ class Pose:
     coords: np.ndarray                 # [n_atoms, 3] float32
     confidence: float                  # FABind+ confidence head (0.0 for base)
     error: Optional[str] = None        # set when the request was skipped
+    sdf_meta: Optional[Dict] = None    # symbols/bonds/charges (dock_sdf),
+    #                                    what featurize.write_sdf needs
     pocket_truncated: int = 0          # predicted-keep residues dropped by
     #                                    the Np bucket (re-dock with a larger
     #                                    bucket when > 0); not measured by
@@ -91,13 +107,17 @@ class DockingEngine:
       device: "cuda" when None; raises if CUDA is not available. Pass
         device="cpu" to run on the CPU.
       dev_prot_cache: protein rows kept on the device (0 disables).
+      esm: an `models.esm2.Esm2Model` that embeds the proteins of
+        `dock_sdf`, moved to the engine's device in float32 (the JAX
+        package's embedding dtype, whatever `bf16` says). Without it a
+        request that names a PDB file comes back as an error Pose.
     """
 
     def __init__(self, cfg: FABindConfig,
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  buckets: Optional[Sequence] = None, batch_size: int = 8,
                  bf16: bool = True, post_optim_steps: int = 0, device=None,
-                 seed: int = 0, dev_prot_cache: int = 32):
+                 seed: int = 0, dev_prot_cache: int = 32, esm=None):
         device = torch.device("cuda" if device is None else device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -110,8 +130,9 @@ class DockingEngine:
             # sums to bf16 and compute another function
             cuda_matmul = torch.backends.cuda.matmul
             cuda_matmul.allow_bf16_reduced_precision_reduction = False
-        else:
-            # full-precision fp32 matmuls and convolutions (no TF32)
+        if not bf16 or esm is not None:
+            # full-precision fp32 matmuls and convolutions (no TF32), for
+            # the fp32 model and for the float32 encoder
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         self.cfg = cfg
@@ -132,6 +153,10 @@ class DockingEngine:
         self._dev_prot_rows: "OrderedDict[tuple, Dict[str, torch.Tensor]]" = \
             OrderedDict()
         self._lock = threading.RLock()
+        self.esm = (None if esm is None
+                    else esm.to(self.device, torch.float32).eval())
+        self._protein_cache: "OrderedDict[str, tuple]" = OrderedDict()
+        self._protein_locks: Dict[str, threading.Lock] = {}
 
     # ------------------------------------------------------------- routing
     def _route(self, s: Dict) -> FABindConfig:
@@ -344,3 +369,114 @@ class DockingEngine:
             inflight.append((chunk, n_real, self.run_batch(batch, cfg_b)))
         self._collect(inflight, results)
         return results   # type: ignore[return-value]
+
+    # ------------------------------------------------------ structure files
+    def _protein_raw(self, pdb_path: str):
+        """(structure, ESM2 embedding) of a PDB file, LRU-cached for 256
+        proteins (~1.3 MB of embedding each at typical sizes: a client
+        cycling through many paths must not grow host memory without
+        bound). The parse and the ESM2 forward run under a lock of this
+        path, never the engine's: holding the engine's lock would stall
+        other requests for the whole forward."""
+        with self._lock:
+            if pdb_path in self._protein_cache:
+                self._protein_cache.move_to_end(pdb_path)
+                return self._protein_cache[pdb_path]
+            plock = self._protein_locks.setdefault(pdb_path,
+                                                   threading.Lock())
+        with plock:
+            with self._lock:   # another thread may have finished it
+                if pdb_path in self._protein_cache:
+                    return self._protein_cache[pdb_path]
+            if self.esm is None:
+                raise RuntimeError(
+                    "DockingEngine has no ESM2 encoder to embed the "
+                    "protein; pass esm=models.esm2.load_esm2(...)")
+            struct = F.extract_protein_structure(pdb_path)
+            esm = F.extract_esm_feature(struct["seq"], self.esm)
+            with self._lock:
+                self._protein_cache[pdb_path] = (struct, esm)
+                self._protein_cache.move_to_end(pdb_path)
+                while len(self._protein_cache) > _PROTEIN_LRU:
+                    old, _ = self._protein_cache.popitem(last=False)
+                    self._protein_locks.pop(old, None)
+            return struct, esm
+
+    def dock_sdf(self, requests: Sequence[Tuple[str, str]],
+                 randomize_init: bool = False, seed: int = 0) -> List[Pose]:
+        """Dock (ligand, pdb_path) pairs without RDKit. Each ligand is a
+        path to a V2000 .sdf file or the molfile's text (anything holding a
+        newline is text: the HTTP /dock_sdf body), parsed and featurized by
+        `featurize.featurize_sdf` (exact for explicit-H SDFs with aromatic
+        type-4 bonds, documented approximations otherwise). The SDF's
+        conformer is the LAS reference and the initial pose (redocking),
+        and each Pose carries `sdf_meta` for `featurize.write_sdf`.
+
+        randomize_init: set every rotatable torsion to a uniform random
+        angle (data/torsion.py), then apply a uniform random rigid rotation
+        about the ligand's centroid, both drawn from one
+        `np.random.RandomState(seed)` across the requests in order: with
+        a crystal pose as input, docking then does not start from the
+        answer. Bond lengths, angles and every LAS distance are kept.
+
+        A request whose files fail to parse, or whose protein cannot be
+        embedded (no encoder), comes back as Pose(error=...)."""
+        rng = np.random.RandomState(seed)
+        raws: List[Dict] = []
+        for sdf, pdb_path in requests:
+            try:
+                feat = (F.featurize_sdf_text(sdf) if "\n" in sdf
+                        else F.featurize_sdf(sdf))
+                if randomize_init:
+                    c = feat["coords"].mean(0, keepdims=True)
+                    # randomize_torsions returns a centered conformer:
+                    # rotate it about the origin, then restore the input's
+                    # centroid so the initial pose stays on the pocket
+                    rand = randomize_torsions(
+                        feat["coords"], feat["bond_edges"], rng,
+                        bond_orders=feat["bond_orders"])
+                    feat = dict(feat, coords=(
+                        uniform_random_rotation(rand, rng)
+                        + c).astype(np.float32))
+                struct, esm = self._protein_raw(pdb_path)
+                raws.append({
+                    "protein_xyz": struct["coords"][:, 1],
+                    "protein_full_coords": struct["coords"],
+                    "esm_feat": esm,
+                    "lig_coords": feat["coords"],
+                    "lig_feats": feat["feats"],
+                    "bond_edges": feat["bond_edges"],
+                    "las_mask": feat["las_mask"],
+                    "rdkit_coords": feat["coords"],
+                    "_sdf_meta": {"symbols": feat["symbols"],
+                                  "bonds": feat["heavy_bonds"],
+                                  "charges": feat["charges"]},
+                })
+            except Exception as e:   # skip-and-continue per request
+                raws.append({"_error": f"{type(e).__name__}: {e}"})
+        poses = self._finish_mol_requests(raws)
+        for raw, pose in zip(raws, poses):
+            if pose.error is None:
+                pose.sdf_meta = raw["_sdf_meta"]
+        return poses
+
+    def dock_smiles(self, requests: Sequence[Tuple[str, str]]) -> List[Pose]:
+        """(smiles, pdb_path) pairs need RDKit for the conformer, which the
+        port does not use: each request comes back as the error Pose the
+        JAX engine gives on a host without RDKit."""
+        return [Pose(coords=np.zeros((0, 3), np.float32), confidence=0.0,
+                     error=f"ImportError: {F.RDKIT_MISSING}")
+                for _ in requests]
+
+    def _finish_mol_requests(self, raws: List[Dict]) -> List[Pose]:
+        """Dock the featurized dicts through dock_raw and put the
+        featurization errors back in request order as error Poses."""
+        ok_idx = [i for i, r in enumerate(raws) if "_error" not in r]
+        poses = self.dock_raw([{k: v for k, v in raws[i].items()
+                                if not k.startswith("_")} for i in ok_idx])
+        out = [Pose(coords=np.zeros((0, 3), np.float32), confidence=0.0,
+                    error=r["_error"]) if "_error" in r else None
+               for r in raws]
+        for i, pose in zip(ok_idx, poses):
+            out[i] = pose
+        return out   # type: ignore[return-value]

@@ -1,7 +1,7 @@
 """HTTP serving daemon around the port's `DockingEngine` (stdlib only).
 
-Own copy of fabind_tpu/serve_http.py for the raw-tensor routes: the weights
-load once, then requests are served until shutdown.
+Own copy of fabind_tpu/serve_http.py: the weights load once, then requests
+are served until shutdown.
 
 Endpoints:
   GET  /health    -> {"status": "ok", "batch_size": N, "bf16": bool,
@@ -21,10 +21,19 @@ Endpoints:
                      most confident of N poses per request; defaults N=40,
                      K=0). Needs an engine with a confidence head (preset
                      fabind_plus_sampling). Same response.
-Any other path answers 404. (/dock and /dock_sdf of the JAX daemon need
-featurization from files, which the port does not have yet.)
+  POST /dock_sdf?randomize_init=0|1&seed=K
+                  -> body: JSON [{"sdf": "<V2000 molfile text>", "pdb":
+                     "path on the server"}, ...]; the ligands inline (never
+                     a server path: a bare path answers 400), the proteins
+                     under --pdb-root when it is set (a path that leaves it
+                     answers 400). DockingEngine.dock_sdf, RDKit-free; a
+                     docked pose adds an "sdf" field, the pose as molfile
+                     text. Needs an engine with an ESM2 encoder.
+Any other path answers 404. (/dock of the JAX daemon docks SMILES, which
+needs RDKit.)
 
-Run:  python -m fabind_tpu_torch.cli.serve --preset fabind --port 8400
+Run:  python -m fabind_tpu_torch.cli.serve --preset fabind --port 8400 \
+          [--esm-weights DIR --pdb-root DIR]
 
 npz keeps the 1280-d ESM features binary; responses are JSON because poses
 are small. The server is a ThreadingHTTPServer and the engine's dock_*
@@ -37,13 +46,16 @@ from __future__ import annotations
 
 import io
 import json
+import os
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from typing import Dict, List
+from typing import Dict, List, Optional
 from urllib.parse import parse_qs, urlparse
 
 import numpy as np
+
+from fabind_tpu_torch.data.featurize import sdf_string
 
 _PREFIX = re.compile(r"^r(\d+)_(.+)$")
 _PROTEIN_KEYS = ("protein_xyz", "esm_feat", "protein_full_coords")
@@ -89,6 +101,11 @@ def _poses_json(poses) -> bytes:
             # the predicted crop outgrew the bucket's Np: the caller may
             # re-dock with a larger bucket
             d["pocket_truncated"] = int(p.pocket_truncated)
+        if p.sdf_meta is not None and np.isfinite(p.coords).all():
+            # /dock_sdf: the docked pose as molfile text, ready to save
+            d["sdf"] = sdf_string(p.sdf_meta["symbols"], p.coords,
+                                  p.sdf_meta["bonds"],
+                                  charges=p.sdf_meta["charges"])
         out.append(d)
     return json.dumps(out).encode()
 
@@ -97,9 +114,10 @@ class _Server(ThreadingHTTPServer):
     """The daemon's server: holds the engine and the request limits."""
 
     def __init__(self, address, engine, max_inflight: int,
-                 max_body_bytes: int):
+                 max_body_bytes: int, pdb_root: Optional[str]):
         super().__init__(address, _Handler)
         self.engine = engine
+        self.pdb_root = pdb_root
         # the engine is thread-safe; the semaphore only bounds how many
         # requests hold device batches at once (memory, not safety)
         self.inflight = threading.Semaphore(max_inflight)
@@ -148,14 +166,17 @@ class _Handler(BaseHTTPRequestHandler):
                     413, f"body {n} bytes exceeds limit "
                          f"{self.server.max_body_bytes}")
             url = urlparse(self.path)
-            if url.path not in ("/dock_raw", "/screen", "/dock_best_of"):
+            if url.path not in ("/dock_raw", "/screen", "/dock_best_of",
+                                "/dock_sdf"):
                 return self._error(404, "not found")
+            q = parse_qs(url.query)
+            if url.path == "/dock_sdf":
+                return self._dock_sdf(json.loads(self.rfile.read(n)), q)
             reqs = _group_npz(self.rfile.read(n))
             if url.path == "/dock_raw":
                 with inflight:
                     poses = engine.dock_raw(reqs)
             elif url.path == "/dock_best_of":
-                q = parse_qs(url.query)
                 kw = {k: int(q[k][0]) for k in ("sample_size", "seed")
                       if k in q}
                 with inflight:
@@ -175,18 +196,46 @@ class _Handler(BaseHTTPRequestHandler):
         except Exception as e:   # per-request fault isolation
             self._error(500, f"{type(e).__name__}: {e}")
 
+    def _dock_sdf(self, reqs, q):
+        """/dock_sdf: (inline molfile, PDB path) pairs; 400 for a ligand
+        given as a path (it would read server files) or a protein path
+        that leaves --pdb-root (it would probe the server's files through
+        the error messages)."""
+        root = self.server.pdb_root
+        pairs = []
+        for r in reqs:
+            pdb = r["pdb"]
+            if root is not None:
+                pdb = os.path.realpath(os.path.join(root, pdb))
+                if not pdb.startswith(os.path.realpath(root) + os.sep):
+                    return self._error(
+                        400, f"pdb path {r['pdb']!r} escapes --pdb-root")
+            if "\n" not in r["sdf"]:
+                return self._error(
+                    400, "sdf must be inline molfile text, not a path")
+            pairs.append((r["sdf"], pdb))
+        with self.server.inflight:
+            poses = self.server.engine.dock_sdf(
+                pairs, randomize_init=bool(int(q.get("randomize_init",
+                                                     [0])[0])),
+                seed=int(q.get("seed", [0])[0]))
+        self._reply(200, _poses_json(poses))
+
 
 def make_server(engine, host: str = "127.0.0.1", port: int = 8400,
                 max_inflight: int = 4,
-                max_body_bytes: int = 256 * 1024 * 1024
-                ) -> ThreadingHTTPServer:
+                max_body_bytes: int = 256 * 1024 * 1024,
+                pdb_root: Optional[str] = None) -> ThreadingHTTPServer:
     """A ThreadingHTTPServer for `engine` (not started; port 0 picks a free
-    one)."""
-    return _Server((host, port), engine, max_inflight, max_body_bytes)
+    one). pdb_root: when set, /dock_sdf's "pdb" values are joined to it and
+    must stay under it; without it they are any path on the server."""
+    return _Server((host, port), engine, max_inflight, max_body_bytes,
+                   pdb_root)
 
 
-def serve_forever(engine, host: str = "127.0.0.1", port: int = 8400) -> None:
-    srv = make_server(engine, host, port)
+def serve_forever(engine, host: str = "127.0.0.1", port: int = 8400,
+                  pdb_root: Optional[str] = None) -> None:
+    srv = make_server(engine, host, port, pdb_root=pdb_root)
     print(f"fabind_tpu_torch serving on http://{host}:{srv.server_address[1]}"
           f" (buckets: {len(engine.bucket_cfgs)}, batch {engine.batch_size})",
           flush=True)

@@ -72,3 +72,60 @@ def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
     if "state_dict" in sd:
         sd = sd["state_dict"]
     return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+
+
+# ------------------------------------------------------------------- ESM2
+# keys of a HuggingFace ESM checkpoint that the encoder does not use: the
+# pooler, the contact and masked-LM heads, and buffers the port recomputes
+_ESM_LEFTOVERS = ("pooler.", "contact_head.", "lm_head.", "inv_freq",
+                  "position_ids")
+
+# flax Esm2Layer child -> HuggingFace EsmLayer path
+_ESM_LAYER_NAMES = {
+    "attn_ln": "attention.LayerNorm", "query": "attention.self.query",
+    "key": "attention.self.key", "value": "attention.self.value",
+    "attn_out": "attention.output.dense", "ffn_ln": "LayerNorm",
+    "intermediate": "intermediate.dense", "ffn_out": "output.dense"}
+
+
+def esm_state_dict_from_flax(params: Dict[str, Any]
+                             ) -> Dict[str, torch.Tensor]:
+    """The JAX package's Esm2Model parameter tree -> HuggingFace EsmModel
+    names (Dense kernels transposed, LayerNorm scale -> weight), the names
+    `models.esm2.Esm2Model` carries."""
+    sd = {}
+    for path, arr in _flatten(params):
+        arr = np.asarray(arr, np.float32)
+        *mods, leaf = path
+        if mods == ["word_embeddings"]:
+            key = "embeddings.word_embeddings.weight"
+        elif mods == ["emb_layer_norm_after"]:
+            key = "encoder.emb_layer_norm_after." + (
+                "weight" if leaf == "scale" else leaf)
+        else:
+            layer, child = mods
+            name = "weight" if leaf in ("kernel", "scale") else leaf
+            key = (f"encoder.layer.{layer[len('layer_'):]}."
+                   f"{_ESM_LAYER_NAMES[child]}.{name}")
+            arr = arr.T if leaf == "kernel" else arr
+        sd[key] = torch.tensor(arr)
+    return sd
+
+
+def load_esm_state_dict(module: torch.nn.Module,
+                        torch_sd: Dict[str, torch.Tensor]) -> List[str]:
+    """Load a HuggingFace ESM state dict (`EsmModel`, or `esm.`-prefixed as
+    in `EsmForMaskedLM`) into an Esm2Model; returns the keys it did not use
+    (pooler, contact and LM heads, rotary `inv_freq`, `position_ids`). Any
+    other unused key, a missing one or a shape mismatch raises."""
+    sd = {k[4:] if k.startswith("esm.") else k: v
+          for k, v in torch_sd.items()}
+    want = module.state_dict()
+    unused = sorted(k for k in sd if k not in want)
+    bad = [k for k in unused if not any(s in k for s in _ESM_LEFTOVERS)]
+    if bad:
+        raise ValueError(f"ESM state dict has {len(bad)} keys the encoder "
+                         f"does not know: {bad[:5]}")
+    module.load_state_dict({k: v for k, v in sd.items() if k in want},
+                           strict=True)
+    return unused

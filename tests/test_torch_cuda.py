@@ -5,7 +5,8 @@ protein-row cache, the launch count under threads; FABind+ against the
 CPU, seeded best-of-N sampling); and a training step on the card against
 the same step on the CPU, with the gate's gradients at a docking training
 shape; and the evaluation and confidence paths on the card against the
-CPU.
+CPU; and the structure-file path on the card (the ESM2 encoder against
+the CPU, dock_sdf).
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -445,3 +446,80 @@ def test_confidence_step_on_card_matches_cpu(cuda):
                                                       sd[n]), n
     for k, v in res["cpu"].items():
         assert abs(res["cuda"][k] - v) <= 1e-3, (k, res["cuda"][k], v)
+
+
+# --------------------------------------------------------- structure files
+def _esm(cfg, seed=0):
+    from fabind_tpu_torch.models.esm2 import Esm2Model
+    torch.manual_seed(seed)
+    model = Esm2Model(cfg)
+    with torch.no_grad():
+        model.embeddings.word_embeddings.weight.normal_(0, 1.0)
+    return model.eval()
+
+
+def test_esm2_on_card_matches_cpu(cuda):
+    """The encoder in fp32 on the card (TF32 off) against the same weights
+    on the CPU over ragged lengths in two buckets, batched and alone."""
+    from fabind_tpu_torch.cli.common import resolve_device
+    from fabind_tpu_torch.models.esm2 import Esm2Config
+    resolve_device("cuda", "test")        # TF32 off, as the entry points
+    seqs = ["LAGVSERTILKQNFAMWYHD" * k for k in (1, 4, 9)] + ["MKV"]
+    model = _esm(Esm2Config(hidden_size=320, num_layers=4, num_heads=20,
+                            intermediate_size=1280))
+    want = model.embed_sequences(seqs, pad_multiple=64, batch_size=2)
+    card = model.to(cuda)
+    got = card.embed_sequences(seqs, pad_multiple=64, batch_size=2)
+    alone = card.embed_sequences(seqs[1:2], pad_multiple=64)[0]
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.isfinite(g).all()
+        np.testing.assert_allclose(g, w, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(alone, got[1], atol=1e-4, rtol=0)
+
+
+def test_dock_sdf_on_card(cuda, tmp_path):
+    """dock_sdf on the card from PDB and SDF files: bf16 over two buckets
+    with 33 gate launches per batch and finite poses, a second call
+    without an ESM2 forward and equal poses; fp32 on the card within 1e-3
+    A of the same engine on the CPU."""
+    from chip_smoke import ligand_with_hydrogens, pdb_text
+    from fabind_tpu_torch.data.featurize import write_sdf
+    from fabind_tpu_torch.models.esm2 import Esm2Config
+    rng = np.random.RandomState(3)
+    pairs = []
+    for i, raw in enumerate(_requests()):
+        seq = "".join(rng.choice(list("ACDEFGHIKLMNPQRSTVWY"),
+                                 len(raw["protein_xyz"])))
+        (tmp_path / f"p{i}.pdb").write_text(pdb_text(seq,
+                                                     raw["protein_xyz"]))
+        n = len(raw["lig_coords"])
+        symbols, coords, bonds = ligand_with_hydrogens(
+            rng, raw["lig_coords"], n_rings=1 if n >= 6 else 0)
+        write_sdf(str(tmp_path / f"l{i}.sdf"), symbols, coords, bonds)
+        pairs.append((str(tmp_path / f"l{i}.sdf"),
+                      str(tmp_path / f"p{i}.pdb")))
+    esm_cfg = Esm2Config(num_layers=1, intermediate_size=64)
+    eng = _engine(esm=_esm(esm_cfg))
+    edge_gate.KERNEL.launches = 0
+    poses = eng.dock_sdf(pairs)
+    assert edge_gate.KERNEL.launches == 2 * LAUNCHES_PER_BATCH
+    assert poses[2].error is not None and "exceeds every bucket" in \
+        poses[2].error
+    calls = []
+    embed = eng.esm.embed_sequences
+    eng.esm.embed_sequences = lambda *a, **k: calls.append(1) or embed(*a,
+                                                                      **k)
+    again = eng.dock_sdf(pairs)
+    assert calls == []
+    for p, q in zip(poses, again):
+        assert p.error == q.error
+        if p.error is None:
+            assert np.isfinite(p.coords).all() and p.sdf_meta is not None
+            np.testing.assert_array_equal(p.coords, q.coords)
+    card = _engine(esm=_esm(esm_cfg), bf16=False).dock_sdf(pairs)
+    host = _engine(esm=_esm(esm_cfg), bf16=False,
+                   device="cpu").dock_sdf(pairs)
+    for a, b in zip(card, host):
+        assert a.error == b.error
+        if a.error is None:
+            np.testing.assert_allclose(a.coords, b.coords, atol=1e-3, rtol=0)

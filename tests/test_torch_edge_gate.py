@@ -26,6 +26,17 @@ from fabind_tpu_torch.ops.edge_gate import (check_inputs, phi_rank1_pair,
 ATOL = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, B=2, D=13, N=21, H=48):
     rng = np.random.RandomState(seed)
     return tuple(rng.randn(*s).astype(np.float32)

@@ -19,6 +19,17 @@ SHAPES = preset("fabind", max_ligand=12, max_pocket=20, max_protein=40,
                 ctx_k=6).shapes
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def complex_inputs():
     """A docking complex assembled from a dummy batch: normalized coords

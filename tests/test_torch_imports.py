@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-scikit-learn, which the card's machine lacks), and it never falls back to
-the CPU on its own."""
+scikit-learn, networkx, BioPython, RDKit or transformers, which the card's
+machine lacks), and it never falls back to the CPU on its own."""
 import json
 import pkgutil
 import subprocess
@@ -26,14 +26,16 @@ def test_port_and_chip_smoke_import_no_jax():
               "data.torsion", "data.dataset", "utils.metrics",
               "utils.logging_utils", "cli.train", "cli.common",
               "cli.evaluate", "cli.sample", "cli.train_confidence",
-              "train.confidence"):
+              "train.confidence", "models.esm2", "data.featurize",
+              "cli.inference", "cli.preprocess"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
         f"for m in {modules!r} + ['chip_smoke']:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'fabind_tpu', 'sklearn'))\n"
+        "('jax', 'jaxlib', 'flax', 'fabind_tpu', 'sklearn', 'networkx', "
+        "'Bio', 'rdkit', 'transformers'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -64,15 +66,20 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
     assert Trainer(cfg, "cpu").device.type == "cpu"
 
 
-@pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence"])
+@pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence",
+                                 "inference", "preprocess"])
 def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
     """Without --device cpu the CLIs run on CUDA, and raise without it
     (before reading anything)."""
     import importlib
     mod = importlib.import_module(f"fabind_tpu_torch.cli.{cli}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    argv = ["--data", str(tmp_path)]
-    if cli != "train_confidence":
-        argv += ["--ckpt", str(tmp_path / "none.bin")]
+    none = str(tmp_path / "none")
+    argv = {"inference": ["--ckpt", none, "--esm-weights", none, "--index",
+                          none, "--pdb-dir", none, "--output", none],
+            "preprocess": ["esm", "--seqs", none, "--out", none,
+                           "--esm-weights", none],
+            "train_confidence": ["--data", str(tmp_path)]}.get(
+        cli, ["--data", str(tmp_path), "--ckpt", none + ".bin"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)

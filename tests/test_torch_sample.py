@@ -43,6 +43,17 @@ ATOL = 2e-4
 KW = dict(TINY, mean_layers=2)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------------- DBSCAN
 def _sklearn_labels(pts, eps, min_samples):
     return DBSCAN(eps=eps, min_samples=min_samples).fit(pts).labels_
@@ -218,7 +229,9 @@ def test_stochastic_forward_draws_recycle_counts(models, monkeypatch):
     count drawn from 1..n_iter, reproducible from the generator's seed, as
     the JAX package's non-deterministic forward with random_n_iter."""
     from fabind_tpu_torch.models.att_model import EfficientMCAttModel
-    cfg = preset("fabind_plus", **dict(KW, n_iter=8, dropout=0.0))
+    # one docking layer: the count is drawn once per forward, whatever
+    # the depth
+    cfg = preset("fabind_plus", **dict(TINY, n_iter=8, dropout=0.0))
     model = make_model(cfg).eval()
     counts = []
     step = EfficientMCAttModel._step

@@ -33,6 +33,17 @@ _LIG_KEYS = ("lig_coords", "lig_feats", "bond_edges", "las_mask",
              "rdkit_coords")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _npz(entries) -> bytes:
     buf = io.BytesIO()
     np.savez(buf, **entries)
@@ -126,8 +137,8 @@ def test_http_refusals(server):
         small.shutdown()
         small.server_close()
         t.join(timeout=30)
-    # routes of the JAX daemon the port does not serve, and unknown ones
-    for path in ("/dock", "/dock_sdf", "/nope"):
+    # the JAX daemon's SMILES route (RDKit), and unknown ones
+    for path in ("/dock", "/nope"):
         assert _status(base + path, b"{}") == 404
     # best-of-N on an engine without a confidence head
     lig = make_raw(n=5, nr=20, seed=4)
@@ -240,8 +251,9 @@ def _capture_serve(monkeypatch):
     import fabind_tpu_torch.serve_http as sh
     captured = {}
 
-    def fake(engine, host="127.0.0.1", port=8400):
+    def fake(engine, host="127.0.0.1", port=8400, pdb_root=None):
         captured["engine"], captured["hp"] = engine, (host, port)
+        captured["pdb_root"] = pdb_root
 
     monkeypatch.setattr(sh, "serve_forever", fake)
     return captured

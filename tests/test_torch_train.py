@@ -52,6 +52,17 @@ GRAD_ATOL, GRAD_RTOL_OF_MAX = 1e-5, 1e-5
 KW = dict(TINY_XS, dropout=0.0, random_n_iter=False, stage_prob=1.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 class _Uniforms:
     """The JAX side's gumbel uniforms, traced as an argument of the jitted
     function; `gumbel_softmax` with the key ignored."""

@@ -50,6 +50,17 @@ PARAM_ATOL = 2e-6
 KW = dict(TINY_XS, dropout=0.0, random_n_iter=False, stage_prob=0.0)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # ------------------------------------------------------------- optimizer
 def _np_tree(t):
     return jax.tree_util.tree_map(np.asarray, t)

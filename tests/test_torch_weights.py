@@ -19,6 +19,17 @@ from fabind_tpu_torch.train.convert import (load_torch_checkpoint,
                                             state_dict_from_flax)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for this module's torch work: its tensors are
+    toy-sized, and the suite runs in parallel workers that would otherwise
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _flax_params(name):
     """A flax parameter tree of the right shapes, filled from a seed (the
     init is only traced, never compiled)."""
