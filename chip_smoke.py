@@ -90,7 +90,23 @@ Phases, each of which raises on failure (non-zero exit):
      to embed_sequences, the NPZ directory read back and docked. Times:
      ESM2 ms per batch of 4 per padded length and TFLOP/s, sequences/s,
      dock_sdf complexes/s cold (ESM2 included) and warm, peak memory, the
-     phase's wall time.
+     phase's wall time;
+ 10. exported serving: phase 3's seeded weights written as a state dict
+     and exported through `cli.export.main` in process on the card (bf16,
+     phase 3's two buckets), while two processes of their own export the
+     small bucket on the CPU and FABind+ (phase 5's weights, small bucket)
+     on the card; `DockingEngine.from_exported` (no model built) serves
+     the 32 requests: poses, confidence and pocket_truncated equal to
+     phase 3's live bf16 dock_raw bit for bit, the gate launched 33 times
+     per batch by the programs, the protein cache warm and dock_screen
+     equal to dock_raw, dock_best_of refused; the exported FABind+ equal
+     to phase 5's poses with no launch; the CPU-exported artifact served
+     on the card by a `cli.serve --exported` daemon process, its
+     /dock_raw equal to the card-exported engine's; `cli.selftest --bf16
+     --train --prod` returns 0. Times: export seconds and bytes per
+     bucket, load seconds, warmup, batch latency and dock_raw complexes/s
+     of a live and of the exported engine, peak memory, the phase's wall
+     time. Every process it starts is stopped before it returns.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -101,6 +117,7 @@ training step (large bucket, fp32 and bf16), and one of an ESM2 forward
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import dataclasses
 import gc
@@ -109,6 +126,7 @@ import json
 import os
 import shutil
 import signal
+import socket
 import statistics
 import subprocess
 import sys
@@ -123,12 +141,14 @@ import numpy as np
 import torch
 
 from fabind_tpu_torch.cli import evaluate as cli_evaluate
+from fabind_tpu_torch.cli import export as cli_export
 from fabind_tpu_torch.cli import inference as cli_inference
 from fabind_tpu_torch.cli import preprocess as cli_preprocess
 from fabind_tpu_torch.cli import sample as cli_sample
+from fabind_tpu_torch.cli import selftest as cli_selftest
 from fabind_tpu_torch.cli import train as cli_train
 from fabind_tpu_torch.cli import train_confidence as cli_train_confidence
-from fabind_tpu_torch.config import preset
+from fabind_tpu_torch.config import ShapeConfig, preset
 from fabind_tpu_torch.data.batching import build_sample
 from fabind_tpu_torch.data.buckets import (resolve_buckets, route_sample,
                                            sort_bucket_cfgs)
@@ -267,6 +287,11 @@ BACKBONE_OFFSETS = {"N": (-1.2, 0.6, 0.0), "CA": (0.0, 0.0, 0.0),
                     "C": (1.2, 0.6, 0.0), "O": (1.4, 1.8, 0.0)}
 VALENCE = {"C": 4, "N": 3, "O": 2, "S": 2}
 ONE_TO_THREE = {v: k for k, v in THREE_TO_ONE.items()}
+# exported serving (phase 10): where the state dicts, artifacts and logs are
+# written; the limits of one export process and of the daemon's start
+EXPORT_ROOT = Path("build/chip_smoke_export")
+EXPORT_TIMEOUT_S = 600
+DAEMON_START_S = 300
 
 
 def check(ok: bool, what: str) -> None:
@@ -622,6 +647,18 @@ def time_engine(engine, batches, raws, what, card_line):
     return lat, syncs
 
 
+def post_dock_raw(base: str, raws):
+    """POST /dock_raw with the npz of `raws`: the daemon's JSON poses."""
+    buf = io.BytesIO()
+    np.savez(buf, **{f"r{i}_{k}": v for i, raw in enumerate(raws)
+                     for k, v in raw.items()})
+    req = urllib.request.Request(
+        base + "/dock_raw", data=buf.getvalue(), method="POST",
+        headers={"Content-Type": "application/octet-stream"})
+    with urllib.request.urlopen(req, timeout=300) as r:
+        return json.loads(r.read())
+
+
 def http_round_trip(engine, raws):
     """The serving daemon on 127.0.0.1 in a thread: /health, then /dock_raw
     with the npz of `raws`; its poses must equal engine.dock_raw's."""
@@ -634,14 +671,7 @@ def http_round_trip(engine, raws):
             health = json.loads(r.read())
         check(health["status"] == "ok" and health["bf16"] is True,
               f"/health {health}")
-        buf = io.BytesIO()
-        np.savez(buf, **{f"r{i}_{k}": v for i, raw in enumerate(raws)
-                         for k, v in raw.items()})
-        req = urllib.request.Request(
-            base + "/dock_raw", data=buf.getvalue(), method="POST",
-            headers={"Content-Type": "application/octet-stream"})
-        with urllib.request.urlopen(req, timeout=300) as r:
-            got = json.loads(r.read())
+        got = post_dock_raw(base, raws)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -735,7 +765,7 @@ def profile_engine(syncs, lat, profile, what, card_line):
 def plus_phase(raws, buckets, card_line, profile):
     """FABind+ served as deployed (bf16, the base phase's buckets and
     requests), no edge-gate launch on its path, its times; then an fp32
-    FABind+ engine on the same requests."""
+    FABind+ engine on the same requests. Returns the bf16 poses."""
     cfg = preset("fabind_plus", **SMOKE_SHAPES)
     engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
     warm = engine.warmup()
@@ -780,6 +810,7 @@ def plus_phase(raws, buckets, card_line, profile):
     for (label, cfg_b, b16), (_, _, b32) in zip(batches, batches32):
         explain_bf16_gap(engine, engine32, b16, b32, cfg_b, label,
                          "fabind_plus ")
+    return poses
 
 
 def time_best_of(engine, raws, samples, what, card_line, calls=1):
@@ -2094,14 +2125,254 @@ def sdf_phase(raws, buckets, card_line, profile=None):
     return {torch.bfloat16: launches}
 
 
+def write_seeded_state_dict(preset_name: str, path: Path) -> str:
+    """The seeded fp32 weights every engine of phases 3-5 draws (seed 0) as
+    a state-dict file, the checkpoint cli.export reads."""
+    model = make_model(preset(preset_name, **SMOKE_SHAPES))
+    init_params(model, torch.Generator().manual_seed(0))
+    torch.save(model.state_dict(), path)
+    return str(path)
+
+
+def export_args(preset_name, ckpt, out, device, shapes=None):
+    """cli.export's arguments at released width, bf16, batch 8; the preset's
+    shapes cut to SMOKE_SHAPES, or to `shapes` (one bucket) when given."""
+    sets = dict(SMOKE_SHAPES)
+    if shapes is not None:
+        sets.update(max_ligand=shapes.max_ligand,
+                    max_pocket=shapes.max_pocket,
+                    max_protein=shapes.max_protein)
+    return (["--preset", preset_name, "--ckpt", ckpt, "--output", str(out),
+             "--batch-size", str(BATCH), "--device", device]
+            + [f"--set={k}={v}" for k, v in sets.items()])
+
+
+def start_process(module: str, args, log: Path) -> subprocess.Popen:
+    """`python -m module args` from this checkout, its output in `log`."""
+    with open(log, "w") as f:
+        return subprocess.Popen([sys.executable, "-m", module, *args],
+                                stdout=f, stderr=subprocess.STDOUT)
+
+
+def finish_export(proc: subprocess.Popen, log: Path, what: str,
+                  card_line: str) -> dict:
+    """Wait for a cli.export process; its JSON line, printed with the
+    export's seconds and bytes."""
+    rc = proc.wait(timeout=EXPORT_TIMEOUT_S)
+    out = log.read_text()
+    check(rc == 0, f"{what}: cli.export exited {rc}:\n{out[-4000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    print_export(rec, what, card_line)
+    return rec
+
+
+def print_export(rec: dict, what: str, card_line: str) -> None:
+    with open(Path(rec["output"]) / "manifest.json") as f:
+        manifest = json.load(f)
+    for e in manifest["buckets"]:
+        size = os.path.getsize(Path(rec["output"]) / e["file"])
+        label = bucket_label(ShapeConfig(**e["shapes"]))
+        print(f"time export {what} bucket {label}: {e['seconds']:.1f} s, "
+              f"artifact {size} bytes [{card_line}]")
+    print(f"export {what}: {rec}")
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def wait_daemon(base: str, proc: subprocess.Popen, log: Path) -> dict:
+    """/health of a daemon process once it answers."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < DAEMON_START_S:
+        check(proc.poll() is None,
+              f"daemon exited {proc.returncode}:\n{log.read_text()[-4000:]}")
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=10) as r:
+                return json.loads(r.read())
+        except (urllib.error.URLError, ConnectionError):
+            time.sleep(1.0)
+    raise RuntimeError(f"chip_smoke check failed: the daemon did not answer "
+                       f"within {DAEMON_START_S} s")
+
+
+def load_exported(path: Path, what: str, card_line: str) -> DockingEngine:
+    t0 = time.perf_counter()
+    engine = DockingEngine.from_exported(str(path))
+    print(f"time load {what} ({len(engine.bucket_cfgs)} buckets): "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    check(engine.model is None, f"{what}: from_exported built a model")
+    return engine
+
+
+def export_phase(raws, buckets, base_poses, plus_poses, card_line):
+    """Phase 10: phase 3's and phase 5's seeded weights exported through
+    cli.export and served by DockingEngine.from_exported; returns the gate
+    launches of the exported bf16 path by bucket."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(EXPORT_ROOT, ignore_errors=True)
+    EXPORT_ROOT.mkdir(parents=True)
+    sd = write_seeded_state_dict("fabind", EXPORT_ROOT / "fabind.pt")
+    sd_plus = write_seeded_state_dict("fabind_plus",
+                                      EXPORT_ROOT / "fabind_plus.pt")
+    small = buckets[0]
+    small_label = bucket_label(small)
+    procs = []
+    try:
+        # the small bucket exported on the CPU, and FABind+ on the card, in
+        # processes of their own while this one exports the base model
+        cpu_log, plus_log = (EXPORT_ROOT / "cpu_small.log",
+                             EXPORT_ROOT / "plus_small.log")
+        procs.append(start_process(
+            "fabind_tpu_torch.cli.export",
+            export_args("fabind", sd, EXPORT_ROOT / "cpu_small", "cpu",
+                        small), cpu_log))
+        procs.append(start_process(
+            "fabind_tpu_torch.cli.export",
+            export_args("fabind_plus", sd_plus, EXPORT_ROOT / "plus_small",
+                        "cuda", small), plus_log))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli_export.main(export_args("fabind", sd, EXPORT_ROOT / "base",
+                                        "cuda") + ["--buckets", BUCKETS])
+        rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+        print_export(rec, "fabind bf16 (cuda, in process)", card_line)
+        check(rec["artifacts"] == len(buckets), f"artifacts {rec}")
+
+        # the CPU-exported small bucket, served on the card by the daemon
+        # while this process loads
+        finish_export(procs[0], cpu_log, "fabind bf16 small bucket (cpu, "
+                      "own process)", card_line)
+        port = free_port()
+        daemon_log = EXPORT_ROOT / "daemon.log"
+        procs.append(start_process(
+            "fabind_tpu_torch.cli.serve",
+            ["--exported", str(EXPORT_ROOT / "cpu_small"), "--port",
+             str(port), "--device", "cuda", "--warmup"], daemon_log))
+
+        engine = load_exported(EXPORT_ROOT / "base", "fabind bf16",
+                               card_line)
+        warm = engine.warmup()
+        print(f"time exported bf16 warmup ({len(buckets)} buckets): "
+              f"{warm:.3f} s [{card_line}]")
+        poses, counter, _, _ = serve_main_path(engine, raws, "exported bf16")
+        d = pose_dist(poses, base_poses)
+        print(f"exported vs live bf16 dock_raw (phase 3), {len(d)} atoms: "
+              f"max per-atom distance {d.max():.3e} A")
+        check(d.max() == 0.0, "exported poses equal the live engine's")
+        check(all(p.confidence == q.confidence
+                  and p.pocket_truncated == q.pocket_truncated
+                  for p, q in zip(poses, base_poses)),
+              "exported confidence and pocket_truncated equal the live ones")
+        again = engine.dock_raw(raws)
+        check(len(engine._dev_prot_rows) > 0
+              and pose_dist(again, poses).max() == 0.0,
+              "exported engine, protein cache warm: the same poses")
+        protein = {k: raws[0][k] for k in ("protein_xyz", "esm_feat")}
+        ligs = [{k: v for k, v in r.items() if k not in protein}
+                for r in raws[:N_SCREEN]]
+        screened = engine.dock_screen(protein, ligs)
+        direct = engine.dock_raw([dict(lig, **protein) for lig in ligs])
+        check_poses(screened, ligs, "exported dock_screen")
+        check(pose_dist(screened, direct).max() == 0.0,
+              "exported dock_screen equals dock_raw")
+        rows = len(engine._dev_prot_rows)
+        print(f"exported bf16: protein cache warm ({rows} rows) and "
+              f"dock_screen of {N_SCREEN} ligands equal dock_raw")
+        try:
+            engine.dock_best_of(raws[:1], sample_size=2)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        check("re-export" in refused, "the exported engine refuses "
+              "dock_best_of with a re-export hint")
+
+        # times: a live engine of the same weights, then the exported one
+        by_bucket = route(engine, raws)
+        live = DockingEngine(preset("fabind", **SMOKE_SHAPES),
+                             buckets=buckets, batch_size=BATCH, seed=0)
+        live.warmup()
+        held = reset_peak()
+        time_engine(live, first_batches(live, by_bucket), raws,
+                    "live bf16 (phase 10)", card_line)
+        print_peak("live bf16 engine (phase 10)", held, card_line)
+        del live
+        held = reset_peak()
+        time_engine(engine, first_batches(engine, by_bucket), raws,
+                    "exported bf16", card_line)
+        print_peak("exported bf16 engine (timed batches and dock_raw)", held,
+                   card_line)
+
+        # FABind+ exported on the card in its own process: phase 5's poses
+        finish_export(procs[1], plus_log, "fabind_plus bf16 small bucket "
+                      "(cuda, own process)", card_line)
+        plus = load_exported(EXPORT_ROOT / "plus_small", "fabind_plus bf16",
+                             card_line)
+        idx = [i for i, r in enumerate(raws)
+               if any(r is q for q in by_bucket[small_label])]
+        rs = [raws[i] for i in idx]
+        plus_got, _, plus_launches, _ = serve_main_path(
+            plus, rs, "exported fabind_plus bf16", per_batch=0)
+        check(plus_launches == 0, "exported fabind_plus launched the gate")
+        d = pose_dist(plus_got, [plus_poses[i] for i in idx])
+        print(f"exported vs live fabind_plus bf16 (phase 5), {len(rs)} "
+              f"requests of bucket {small_label}: max per-atom distance "
+              f"{d.max():.3e} A")
+        check(d.max() == 0.0, "exported FABind+ poses equal the live ones")
+        del plus
+
+        # /dock_raw through cli.serve --exported (the CPU artifact, on the
+        # card) against the card-exported engine
+        base_url = f"http://127.0.0.1:{port}"
+        health = wait_daemon(base_url, procs[2], daemon_log)
+        check(health["buckets"] == [[small.max_ligand, small.max_pocket,
+                                     small.max_protein]],
+              f"daemon /health {health}")
+        got = post_dock_raw(base_url, rs)
+        want = engine.dock_raw(rs)
+        check(len(got) == len(want), "daemon: one pose per request")
+        for g, w in zip(got, want):
+            check(g["error"] is None and w.error is None,
+                  "daemon pose error")
+            check(np.array_equal(np.asarray(g["coords"], np.float32),
+                                 w.coords),
+                  "the CPU-exported artifact on the card (daemon) equals "
+                  "the card-exported one")
+        print(f"cli.serve --exported (CPU-exported bucket {small_label}, "
+              f"own process): /health {health}; /dock_raw {len(got)} poses "
+              f"equal the card-exported engine's")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait()
+
+    t0 = time.perf_counter()
+    rc = cli_selftest.main(["--bf16", "--train", "--prod", "--device",
+                            "cuda"])
+    check(rc == 0, f"cli.selftest returned {rc}")
+    print(f"time cli.selftest --bf16 --train --prod: "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    print(f"time phase 10 (exported serving) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return {torch.bfloat16: counter.launches}
+
+
 def time_kernel_rows(served, max_err, launches, train_launches,
-                     eval_launches, sdf_launches, sms, clock_hz, card_line):
+                     eval_launches, sdf_launches, exported_launches, sms,
+                     clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
     per batch, with the serving path's launch counts; and one per (dtype,
-    bucket) of the training path, of the evaluation path (fp32 only) and of
-    the dock_sdf path (bf16 only), with their launch counts (their batches
-    have the served shapes)."""
+    bucket) of the training path, of the evaluation path (fp32 only), of
+    the dock_sdf path and of the exported serving path (bf16 only), with
+    their launch counts (their batches have the served shapes)."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -2129,7 +2400,8 @@ def time_kernel_rows(served, max_err, launches, train_launches,
                   f"{k_ms * n:.4f} ms [{card_line}]")
             for path, counts in (("", launches), ("train ", train_launches),
                                  ("evaluate ", eval_launches),
-                                 ("dock_sdf ", sdf_launches)):
+                                 ("dock_sdf ", sdf_launches),
+                                 ("exported ", exported_launches)):
                 if dtype not in counts:
                     continue
                 rows.append({
@@ -2268,7 +2540,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- 5. FABind+ and 6. best-of-N sampling
-    plus_phase(raws, buckets, card_line, args.profile)
+    plus_poses = plus_phase(raws, buckets, card_line, args.profile)
     torch.cuda.empty_cache()
     best_of_phase(raws, buckets, card_line)
 
@@ -2284,10 +2556,15 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     sdf_launches = sdf_phase(raws, buckets, card_line, args.profile)
 
+    # ---- 10. exported serving: cli.export, from_exported, the daemon
+    torch.cuda.empty_cache()
+    exported_launches = export_phase(raws, buckets, poses, plus_poses,
+                                     card_line)
+
     # ---- 4b. kernel times
     rows = time_kernel_rows(served, max_err, main_launches, train_launches,
-                            eval_launches, sdf_launches, sms, clock_hz,
-                            card_line)
+                            eval_launches, sdf_launches, exported_launches,
+                            sms, clock_hz, card_line)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

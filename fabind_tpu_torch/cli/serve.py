@@ -10,6 +10,12 @@ Usage:
       [--set KEY=VALUE ...] [--device cuda|cpu] \
       [--esm-weights PATH] [--pdb-root DIR]
 
+  # or serve an artifact directory of cli.export: no model built, no
+  # checkpoint read; preset, buckets, batch size and dtype come from its
+  # manifest
+  python -m fabind_tpu_torch.cli.serve --exported exported/ [--port 8400] \
+      [--device cuda|cpu] [--warmup] [--esm-weights PATH] [--pdb-root DIR]
+
 Without --ckpt the engine serves seeded random weights (smoke tests only).
 /dock_sdf needs --esm-weights (models.esm2.load_esm2: a local HuggingFace
 ESM2 directory or state dict) to embed its proteins.
@@ -51,9 +57,30 @@ def main(argv=None):
     p.add_argument("--esm-weights", default=None, metavar="PATH",
                    help="ESM2 encoder for /dock_sdf's proteins: a local "
                         "HuggingFace directory or torch state dict")
+    p.add_argument("--exported", default=None, metavar="DIR",
+                   help="serve a cli.export artifact directory instead "
+                        "of --ckpt: weights are baked into the per-bucket "
+                        "programs, and config/buckets/batch-size/bf16 "
+                        "come from the manifest — model flags passed "
+                        "alongside are rejected to prevent silent "
+                        "disagreement (--preset/--batch-size have argparse "
+                        "defaults and are simply ignored)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+
+    if args.exported:
+        baked = [n for n, v in [("--ckpt", args.ckpt),
+                                ("--buckets", args.buckets),
+                                ("--set", args.set or None),
+                                ("--no-bf16", args.no_bf16 or None),
+                                ("--post-optim-steps",
+                                 args.post_optim_steps or None)]
+                 if v is not None]
+        if baked:
+            raise SystemExit(f"--exported bakes these into the artifact; "
+                             f"drop {', '.join(baked)} (re-export to change "
+                             f"them)")
 
     if args.preset == "fabflex":
         raise NotImplementedError(
@@ -63,7 +90,16 @@ def main(argv=None):
     from fabind_tpu_torch.config import parse_overrides, preset
     from fabind_tpu_torch.data.buckets import resolve_buckets
     from fabind_tpu_torch.serve import DockingEngine
-    from fabind_tpu_torch.serve_http import serve_forever
+
+    esm = None
+    if args.esm_weights is not None:
+        from fabind_tpu_torch.models.esm2 import load_esm2
+        esm = load_esm2(args.esm_weights)
+    if args.exported:
+        engine = DockingEngine.from_exported(args.exported,
+                                             device=args.device, esm=esm)
+        _serve(engine, args)
+        return
 
     cfg = preset(args.preset, **parse_overrides(args.set))
     source = indices = None
@@ -82,15 +118,17 @@ def main(argv=None):
     if args.ckpt is not None:
         from fabind_tpu_torch.train.convert import load_torch_checkpoint
         state_dict = load_torch_checkpoint(args.ckpt)
-    esm = None
-    if args.esm_weights is not None:
-        from fabind_tpu_torch.models.esm2 import load_esm2
-        esm = load_esm2(args.esm_weights)
     engine = DockingEngine(cfg, state_dict=state_dict, buckets=buckets,
                            batch_size=args.batch_size,
                            bf16=not args.no_bf16,
                            post_optim_steps=args.post_optim_steps,
                            device=args.device, esm=esm)
+    _serve(engine, args)
+
+
+def _serve(engine, args) -> None:
+    from fabind_tpu_torch.serve_http import serve_forever
+
     if args.warmup:
         print(f"warming up {len(engine.bucket_cfgs)} bucket(s)...",
               flush=True)

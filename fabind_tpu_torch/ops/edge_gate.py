@@ -13,8 +13,10 @@ attention directions over the same r [B, Na, Nb], u and w2:
 
 `phi_rank1_pair` computes both in one launch of the hand-written CUDA kernel
 (csrc/edge_gate.cu) on CUDA tensors, reading r once and never transposing it;
-on CPU tensors it takes its plain PyTorch version. The backward recomputes
-the plain version's VJP, as the TPU kernel's custom_vjp does.
+on CPU tensors it takes its plain PyTorch version. Both are implementations
+of one registered operator, `torch.ops.fabind_tpu_torch.edge_gate_pair`, so
+torch.export can trace the model through it (aot.py). The backward
+recomputes the plain version's VJP, as the TPU kernel's custom_vjp does.
 """
 from __future__ import annotations
 
@@ -116,9 +118,22 @@ def check_inputs(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,
     return B, Na, Nb, H
 
 
+@torch.library.custom_op("fabind_tpu_torch::edge_gate_pair",
+                         mutates_args=(), device_types="cpu")
+def edge_gate_pair(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,
+                   w2: Tensor, act: str) -> Tuple[Tensor, Tensor]:
+    """The gate as a registered operator: its CPU implementation is the
+    plain version, its CUDA one the kernel (below), so the device choice is
+    the dispatcher's and a traced program (torch.export) records one call
+    that dispatches on the device it runs on."""
+    return phi_rank1_pair_reference(l1_a, l1_b, r, u, w2, act)
+
+
+@edge_gate_pair.register_kernel("cuda")
 def _launch(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor, w2: Tensor,
             act: str) -> Tuple[Tensor, Tensor]:
-    """One launch: (phi_ab, phi_ba)."""
+    """One launch on the current stream: (phi_ab, phi_ba). Raises on bad
+    input or a failed launch; counts the launch when it runs."""
     B, Na, Nb, H = check_inputs(l1_a, l1_b, r, u, w2)
     out_ab = torch.empty_like(r)
     out_ba = torch.empty((B, Nb, Na), dtype=r.dtype, device=r.device)
@@ -136,32 +151,33 @@ def _launch(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor, w2: Tensor,
     return out_ab, out_ba
 
 
-class _PhiRank1Pair(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, l1_a, l1_b, r, u, w2, act):
-        ctx.save_for_backward(l1_a, l1_b, r, u, w2)
-        ctx.act = act
-        return _launch(l1_a, l1_b, r, u, w2, act)
-
-    @staticmethod
-    def backward(ctx, g_ab, g_ba):
-        return (*phi_rank1_pair_vjp(*ctx.saved_tensors, ctx.act, g_ab, g_ba),
-                None)
+@edge_gate_pair.register_fake
+def _fake(l1_a, l1_b, r, u, w2, act):
+    B, Na, Nb = r.shape
+    return r.new_empty((B, Na, Nb)), r.new_empty((B, Nb, Na))
 
 
-def _device_type(r: Tensor, act: str) -> str:
-    if act not in _ACT_IDS:
-        raise ValueError(f"edge_gate: act must be one of {list(_ACT_IDS)}")
-    if r.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"edge_gate: unsupported device {r.device}")
-    return r.device.type
+def _setup_context(ctx, inputs, output):
+    *tensors, act = inputs
+    ctx.save_for_backward(*tensors)
+    ctx.act = act
+
+
+def _backward(ctx, g_ab, g_ba):
+    return (*phi_rank1_pair_vjp(*ctx.saved_tensors, ctx.act, g_ab, g_ba),
+            None)
+
+
+edge_gate_pair.register_autograd(_backward, setup_context=_setup_context)
 
 
 def phi_rank1_pair(l1_a: Tensor, l1_b: Tensor, r: Tensor, u: Tensor,
                    w2: Tensor, act: str = "silu") -> Tuple[Tensor, Tensor]:
-    """Both directions, (phi_ab [B,Na,Nb], phi_ba [B,Nb,Na]): one launch of
-    the CUDA kernel for CUDA tensors (it launches or raises), the plain
-    version for CPU tensors."""
-    if _device_type(r, act) == "cpu":
-        return phi_rank1_pair_reference(l1_a, l1_b, r, u, w2, act)
-    return _PhiRank1Pair.apply(l1_a, l1_b, r, u, w2, act)
+    """Both directions, (phi_ab [B,Na,Nb], phi_ba [B,Nb,Na]), through the
+    registered operator: one launch of the CUDA kernel for CUDA tensors (it
+    launches or raises), the plain version for CPU tensors."""
+    if act not in _ACT_IDS:
+        raise ValueError(f"edge_gate: act must be one of {list(_ACT_IDS)}")
+    if r.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"edge_gate: unsupported device {r.device}")
+    return edge_gate_pair(l1_a, l1_b, r, u, w2, act)

@@ -16,6 +16,8 @@ come back in the world frame of the input structure.
   once per bucket.
 - FABind+ presets serve the same way; `dock_best_of` runs best-of-N
   sampling (sample.py) and keeps each request's most confident pose.
+- `DockingEngine.from_exported(dir)` serves the per-bucket programs of an
+  artifact directory (aot.py, cli/export.py) without building the model.
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -34,12 +36,13 @@ Example:
 
 Thread safety: every dock_* method may be called from several threads at
 once. The protein-row cache is read and filled under an RLock; the model runs
-outside it (its forward keeps no state), so concurrent calls interleave at
-batch granularity and give the poses of serial calls. A protein's ESM2
-forward runs under a lock of its own path, not the engine's, so it does not
-stall requests for other proteins. `dock_best_of` turns
-dropout on for its own thread only (layers.dropout_rng), so a concurrent
-dock_raw on the same engine stays deterministic.
+outside it (its forward keeps no state), an exported program inside it, so
+concurrent calls interleave at batch granularity and give the poses of
+serial calls. A protein's ESM2 forward runs under a lock of its own path,
+not the engine's, so it does not stall requests for other proteins.
+`dock_best_of` turns dropout on for its own thread only
+(layers.dropout_rng), so a concurrent dock_raw on the same engine stays
+deterministic.
 """
 from __future__ import annotations
 
@@ -86,6 +89,16 @@ class Pose:
     #                                    dock_best_of
 
 
+def _resolve_device(device) -> torch.device:
+    """`device`, cuda when None; cuda raises when it is not available."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "DockingEngine: CUDA is not available; pass device='cpu' to "
+            "run on the CPU")
+    return device
+
+
 class DockingEngine:
     """Weight-resident batch docking with shape-bucket routing on one
     device.
@@ -118,11 +131,24 @@ class DockingEngine:
                  buckets: Optional[Sequence] = None, batch_size: int = 8,
                  bf16: bool = True, post_optim_steps: int = 0, device=None,
                  seed: int = 0, dev_prot_cache: int = 32, esm=None):
-        device = torch.device("cuda" if device is None else device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "DockingEngine: CUDA is not available; pass device='cpu' to "
-                "run on the CPU")
+        self._setup(cfg, sort_bucket_cfgs(cfg, buckets), batch_size, bf16,
+                    post_optim_steps, device, dev_prot_cache, esm)
+        model = make_model(cfg)
+        if state_dict is None:
+            init_params(model, torch.Generator().manual_seed(seed))
+        else:
+            model.load_state_dict(state_dict, strict=True)
+        model = model.to(self.device).eval()
+        self.model = cast_module_bf16(model) if bf16 else model
+        self._exported = None
+
+    def _setup(self, cfg: FABindConfig, bucket_cfgs, batch_size: int,
+               bf16: bool, post_optim_steps: int, device,
+               dev_prot_cache: int, esm) -> None:
+        """What a live and an exported engine share: the device (raises
+        without CUDA), the process's backend flags, the buckets, the caches
+        and the encoder."""
+        device = _resolve_device(device)
         # per-process backend flags, as the JAX engine's XLA settings
         if bf16:
             # cuBLAS accumulates bf16 products in fp32 and rounds once, as
@@ -141,14 +167,7 @@ class DockingEngine:
         self.dtype = torch.bfloat16 if bf16 else torch.float32
         self.post_optim_steps = post_optim_steps
         self.device = device
-        self.bucket_cfgs = sort_bucket_cfgs(cfg, buckets)
-        model = make_model(cfg)
-        if state_dict is None:
-            init_params(model, torch.Generator().manual_seed(seed))
-        else:
-            model.load_state_dict(state_dict, strict=True)
-        model = model.to(self.device).eval()
-        self.model = cast_module_bf16(model) if bf16 else model
+        self.bucket_cfgs = bucket_cfgs
         self.dev_prot_cache = dev_prot_cache
         self._dev_prot_rows: "OrderedDict[tuple, Dict[str, torch.Tensor]]" = \
             OrderedDict()
@@ -157,6 +176,41 @@ class DockingEngine:
                     else esm.to(self.device, torch.float32).eval())
         self._protein_cache: "OrderedDict[str, tuple]" = OrderedDict()
         self._protein_locks: Dict[str, threading.Lock] = {}
+
+    @classmethod
+    def from_exported(cls, path: str, post_optim_steps: Optional[int] = None,
+                      device=None, dev_prot_cache: int = 32,
+                      esm=None) -> "DockingEngine":
+        """Serve an artifact directory of `aot.export_inference` (or
+        `cli.export`) instead of the model's code and a checkpoint: each
+        bucket's batch runs its exported program, with the weights baked
+        in, so no FABind module is built (`model` is None). The config,
+        buckets, batch size and dtype come from the manifest. Routing, the
+        protein-row cache, dock_raw, dock_screen, dock_sdf and warmup are
+        the live engine's; dock_best_of raises (the artifact holds no
+        sampling program).
+
+        The manifest's post-optimization steps run after the program with
+        the live engine's function; a `post_optim_steps` other than the
+        manifest's raises, as the count is fixed at export time."""
+        from fabind_tpu_torch.aot import ExportedInference, read_manifest
+
+        device = _resolve_device(device)
+        baked = read_manifest(path)["post_optim_steps"]
+        if post_optim_steps is not None and post_optim_steps != baked:
+            raise ValueError(
+                f"post_optim_steps is baked into the artifact at export "
+                f"time (artifact: {baked}, requested: {post_optim_steps}) "
+                f"— re-export with the desired value")
+        ex = ExportedInference(path, device)
+        self = cls.__new__(cls)
+        # the backend flags too: the programs compute the exported function
+        # only under them
+        self._setup(ex.cfg, ex.bucket_cfgs, ex.batch_size, ex.bf16,
+                    ex.post_optim_steps, ex.device, dev_prot_cache, esm)
+        self.model = None
+        self._exported = ex
+        return self
 
     # ------------------------------------------------------------- routing
     def _route(self, s: Dict) -> FABindConfig:
@@ -254,8 +308,14 @@ class DockingEngine:
         batch of bucket cfg_b, on the device and not waited for;
         post-optimized when post_optim_steps > 0."""
         with torch.inference_mode():
-            coords, conf, overflow = self.model.inference_diag(
-                batch, shapes=cfg_b.shapes)
+            if self._exported is None:
+                coords, conf, overflow = self.model.inference_diag(
+                    batch, shapes=cfg_b.shapes)
+            else:
+                # under the engine's lock: an exported program's module is
+                # not documented as safe to call from several threads
+                with self._lock:
+                    coords, conf, overflow = self._exported.fn(cfg_b)(batch)
         return self._post_optimize(coords, batch), conf, overflow
 
     def _best_of_batch(self, batch: FABindBatch, cfg_b: FABindConfig,
@@ -333,6 +393,12 @@ class DockingEngine:
         seed on the same device gives the same poses. Needs a confidence
         head (preset "fabind_plus_sampling"); pocket_truncated is not
         measured on this path."""
+        if self._exported is not None:
+            raise ValueError(
+                "this engine serves an exported artifact, which holds no "
+                "sampling programs (the port does not export them yet): "
+                "re-export once it does, or serve dock_best_of from a live "
+                "DockingEngine")
         if not self.cfg.model.confidence_training:
             raise ValueError("dock_best_of ranks poses by the confidence "
                              "head: serve preset 'fabind_plus_sampling'")

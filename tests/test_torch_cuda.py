@@ -6,7 +6,7 @@ CPU, seeded best-of-N sampling); and a training step on the card against
 the same step on the CPU, with the gate's gradients at a docking training
 shape; and the evaluation and confidence paths on the card against the
 CPU; and the structure-file path on the card (the ESM2 encoder against
-the CPU, dock_sdf).
+the CPU, dock_sdf); and exported programs served on the card.
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -523,3 +523,32 @@ def test_dock_sdf_on_card(cuda, tmp_path):
         assert a.error == b.error
         if a.error is None:
             np.testing.assert_allclose(a.coords, b.coords, atol=1e-3, rtol=0)
+
+
+def test_exported_engine_on_card_matches_live(cuda, tmp_path):
+    """The bf16 small bucket exported on the card (aot.export_inference at
+    the released depth) and served by DockingEngine.from_exported: no
+    model built, the gate kernel launched through the registered operator
+    33 times per batch, poses equal to the live engine's bit for bit; the
+    same bucket exported on the CPU and served on the card gives them too."""
+    from fabind_tpu_torch.aot import export_inference
+    from fabind_tpu_torch.models.fabind import init_params, make_model
+
+    cfg = preset("fabind", **dict(ENGINE_KW, max_ligand=8, max_pocket=16,
+                                  max_protein=32))
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    raws = [_raw(5, 12, 1), _raw(6, 14, 4), _raw(7, 20, 6)]
+    live = DockingEngine(cfg, batch_size=2, seed=0).dock_raw(raws)
+    for device in ("cuda", "cpu"):
+        out = str(tmp_path / device)
+        export_inference(cfg, model.state_dict(), out, batch_size=2,
+                         device=device)
+        eng = DockingEngine.from_exported(out)
+        assert eng.model is None and eng.device.type == "cuda"
+        edge_gate.KERNEL.launches = 0
+        got = eng.dock_raw(raws)
+        assert edge_gate.KERNEL.launches == 2 * LAUNCHES_PER_BATCH
+        for g, w in zip(got, live):
+            assert g.error is None
+            np.testing.assert_array_equal(g.coords, w.coords)

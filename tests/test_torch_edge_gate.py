@@ -7,6 +7,8 @@ calls of it) and to the Pallas kernel run in interpret mode, as tests/test_palla
 it. The CUDA kernel itself is held to the
 plain version on the card (tests/test_torch_cuda.py, chip_smoke.py).
 """
+import operator
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -188,3 +190,34 @@ def test_check_inputs():
     big = torch.zeros(1, 1, edge_gate.MAX_H + 1)
     with pytest.raises(ValueError, match="exceeds"):
         check_inputs(big, big, torch.zeros(1, 1, 1), big[0, 0], big[0, 0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("grad", [False, True])
+def test_registered_operator_opcheck(dtype, grad):
+    """torch.library.opcheck of the gate's operator on CPU tensors: its
+    schema, its fake implementation (shapes, dtype and strides of the
+    outputs, what torch.export traces with), its autograd registration and
+    an AOT-dispatch trace."""
+    args = [t.to(dtype).requires_grad_(grad)
+            for t in map(torch.from_numpy, _pair_inputs(11, H=16))]
+    torch.library.opcheck(edge_gate.edge_gate_pair, (*args, "silu"))
+
+
+def test_wrapper_is_the_registered_operator():
+    """phi_rank1_pair dispatches through the operator (the device choice is
+    the dispatcher's), so a traced program records one call per launch."""
+    args = tuple(map(torch.from_numpy, _pair_inputs(12)))
+    for act in ("silu", "relu"):
+        got = torch.ops.fabind_tpu_torch.edge_gate_pair(*args, act)
+        for g, w in zip(got, phi_rank1_pair(*args, act=act)):
+            torch.testing.assert_close(g, w, atol=0, rtol=0)
+    ep = torch.export.export(_PairModule(), args, strict=False)
+    assert [n.target for n in ep.graph.nodes if n.op == "call_function"
+            and n.target is not operator.getitem] \
+        == [torch.ops.fabind_tpu_torch.edge_gate_pair.default]
+
+
+class _PairModule(torch.nn.Module):
+    def forward(self, *args):
+        return phi_rank1_pair(*args, act="silu")

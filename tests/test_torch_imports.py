@@ -27,7 +27,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "utils.logging_utils", "cli.train", "cli.common",
               "cli.evaluate", "cli.sample", "cli.train_confidence",
               "train.confidence", "models.esm2", "data.featurize",
-              "cli.inference", "cli.preprocess"):
+              "cli.inference", "cli.preprocess", "aot", "cli.export",
+              "cli.selftest"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -67,7 +68,8 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence",
-                                 "inference", "preprocess"])
+                                 "inference", "preprocess", "export",
+                                 "selftest"])
 def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
     """Without --device cpu the CLIs run on CUDA, and raise without it
     (before reading anything)."""
@@ -79,7 +81,9 @@ def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
                           none, "--pdb-dir", none, "--output", none],
             "preprocess": ["esm", "--seqs", none, "--out", none,
                            "--esm-weights", none],
-            "train_confidence": ["--data", str(tmp_path)]}.get(
+            "train_confidence": ["--data", str(tmp_path)],
+            "export": ["--ckpt", none + ".bin", "--output", none],
+            "selftest": []}.get(
         cli, ["--data", str(tmp_path), "--ckpt", none + ".bin"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
