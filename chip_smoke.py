@@ -106,7 +106,28 @@ Phases, each of which raises on failure (non-zero exit):
      --train --prod` returns 0. Times: export seconds and bytes per
      bucket, load seconds, warmup, batch latency and dock_raw complexes/s
      of a live and of the exported engine, peak memory, the phase's wall
-     time. Every process it starts is stopped before it returns.
+     time. Every process it starts is stopped before it returns;
+ 11. the processed PDBbind store: the 32 requests written in the
+     reference's layout by the port's own writers (protein, compound and
+     ESM2 LMDB stores through the pure-Python codec, compound_rdkit_coords.pt,
+     data.pt through save_frame: 24 train, 4 valid and 4 test rows and three
+     rows the split filters drop; three all-carbon ligands, two chains and a
+     tert-butyl, have non-trivial automorphism groups; an unseen-id file).
+     Checks: `splits` of both presets; base `cli.train.main` from data.pt
+     (fp32, one epoch with evaluation: finite, no skipped step, the gate
+     launches TrainProbe expects); `cli.evaluate.main --split test
+     --unseen-index` at stages 2 and 1 (33 launches per batch and stage);
+     `cli.preprocess inject-iso` (data_new.pt: identity first, every
+     automorphism maps labels and bonds onto themselves); `cli.preprocess
+     pdbbind --isomorphisms` and a FABind+ Loader epoch over the store
+     bit-equal to one over the NPZ directory (seed 0, workers 4); a bf16
+     FABind+ epoch from data_new.pt (iso_mask rows with more than one true
+     entry, no gate launch); `cli.preprocess esm --lmdb` with an encoder of
+     phase 9's CLIs (2 layers at full width, seeded; each row equal to
+     embed_sequences). Times: the store's
+     write, ms per source.get against ms per NPZ load, Loader samples/s
+     over both, inject-iso ms per complex, train step ms and samples/s,
+     evaluation complexes/s, the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -124,6 +145,7 @@ import gc
 import io
 import json
 import os
+import pickle
 import shutil
 import signal
 import socket
@@ -152,7 +174,11 @@ from fabind_tpu_torch.config import ShapeConfig, preset
 from fabind_tpu_torch.data.batching import build_sample
 from fabind_tpu_torch.data.buckets import (resolve_buckets, route_sample,
                                            sort_bucket_cfgs)
-from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.dataset import (Loader, NPZSource,
+                                           PDBBindLMDBSource, open_source)
+from fabind_tpu_torch.data.frame import load_frame, save_frame
+from fabind_tpu_torch.data.isomorphism import iso_labels_from_arrays
+from fabind_tpu_torch.data.kv import open_kv, write_kv
 from fabind_tpu_torch.data.featurize import (THREE_TO_ONE,
                                              extract_protein_structure,
                                              featurize_sdf, parse_sdf,
@@ -292,6 +318,21 @@ ONE_TO_THREE = {v: k for k, v in THREE_TO_ONE.items()}
 EXPORT_ROOT = Path("build/chip_smoke_export")
 EXPORT_TIMEOUT_S = 600
 DAEMON_START_S = 300
+# the processed PDBbind store (phase 11): where it is written, its groups
+# (train, test, valid rows of the 32 requests, in request order: the test
+# rows hold request 27, which routes to the small bucket), the rows that
+# carry a symmetric ligand (all-carbon: a chain, whose reversal is its one
+# automorphism, and a chain ending in a tert-butyl, 3! permutations), the
+# three rows the split filters must drop, the unseen test ids (both
+# buckets)
+STORE_ROOT = Path("build/chip_smoke_store")
+STORE_GROUPS = (("train", 24), ("test", 4), ("valid", 4))
+STORE_SYMMETRIC = {0: "chain", 1: "tert-butyl", 28: "chain"}
+STORE_FILTERED = (("xxlig", dict(c_length=120)),
+                  ("xxcon", dict(native_num_contact=3)),
+                  ("xxcom", dict(use_compound_com=False)))
+STORE_UNSEEN = ("r25", "r26", "r27")
+STORE_SEQ_SEED = 11
 
 
 def check(ok: bool, what: str) -> None:
@@ -974,7 +1015,8 @@ def write_npz_dir(raws, root: Path, isomorphisms: bool = False) -> str:
 class TrainProbe:
     """While open, records each Trainer.train_step (bucket, host seconds
     from a synchronized start to the metrics read back, gate launches, the
-    launches its forward and backward should make, its recycle rounds) and
+    launches its forward and backward should make, its recycle rounds, the
+    true entries of each row's iso_mask) and
     each eval_step (stage, bucket, launches). The gate launches once per
     attention layer of every recycle round of the base model (the coord
     MLP has no dropout, so the JAX package's rule keeps the gate on in
@@ -1006,6 +1048,8 @@ class TrainProbe:
                 n * (1 + (mcfg.remat and grad)) for n, grad, _ in probe.rounds)
             probe.steps.append(dict(
                 label=bucket_label(bucket_cfg.shapes), s=sec, metrics=m,
+                iso=(None if batch.iso_mask is None
+                     else batch.iso_mask.sum(-1).tolist()),
                 launches=edge_gate.KERNEL.launches - before,
                 expected=expected,
                 recycles=sum(1 for _, _, n in probe.rounds
@@ -2364,15 +2408,339 @@ def export_phase(raws, buckets, base_poses, plus_poses, card_line):
     return {torch.bfloat16: counter.launches}
 
 
-def time_kernel_rows(served, max_err, launches, train_launches,
-                     eval_launches, sdf_launches, exported_launches, sms,
-                     clock_hz, card_line):
+def store_ligand(raw, i: int, rng):
+    """(feats, directed edge list [E, 3] with torchdrug relation ids) of
+    request i's ligand in the store: a symmetric row is all carbon (a
+    torchdrug one-hot of C and its degree), single bonds, its chain ending
+    in a tert-butyl where STORE_SYMMETRIC says so; any other row keeps its
+    features and chain and draws a relation id per bond."""
+    n = raw["lig_coords"].shape[0]
+    kind = STORE_SYMMETRIC.get(i)
+    if kind is None:
+        bonds = [tuple(e) for e in raw["bond_edges"].tolist() if e[0] < e[1]]
+        rel = rng.randint(0, 4, len(bonds))
+        feats = raw["lig_feats"]
+    else:
+        bonds = [(a, a + 1) for a in range(n - 1)]
+        if kind == "tert-butyl":
+            bonds = bonds[:n - 3] + [(n - 4, n - 2), (n - 4, n - 1)]
+        rel = np.zeros(len(bonds), np.int64)
+        degree = np.bincount(np.asarray(bonds).reshape(-1), minlength=n)
+        feats = np.zeros((n, 56), np.float32)
+        feats[:, 2] = 1.0
+        feats[np.arange(n), 18 + degree] = 1.0
+    edges = sorted([(a, b, int(r)) for (a, b), r in zip(bonds, rel)]
+                   + [(b, a, int(r)) for (a, b), r in zip(bonds, rel)])
+    return feats, np.asarray(edges, np.int64)
+
+
+def write_store(raws, root: Path) -> dict:
+    """The requests as a processed store in the reference's layout, with
+    the port's writers: protein_1d_3d.lmdb (xyz, int-coded sequence),
+    compound_LAS_edge_index.lmdb (the torchdrug 6-tuple: coords, features,
+    edge list with relation ids, edge_attr, pair distances, LAS edge
+    index), esm2_t33_650M_UR50D.lmdb, compound_rdkit_coords.pt, data.pt
+    (save_frame: STORE_GROUPS of the requests, then the STORE_FILTERED
+    rows) and split_pdb_id/unseen_test_index. Returns {pdb: sequence}."""
+    shutil.rmtree(root, ignore_errors=True)
+    proc = root / "dataset" / "processed"
+    proc.mkdir(parents=True)
+    rng = np.random.RandomState(STORE_SEQ_SEED)
+    groups = [g for g, k in STORE_GROUPS for _ in range(k)]
+    rows = [(f"r{i:02d}", groups[i], raws[i], i, {})
+            for i in range(len(groups))]
+    rows += [(name, "train", raws[2 + k], 2 + k, kw)
+             for k, (name, kw) in enumerate(STORE_FILTERED)]
+    protein, compound, esm, rdkit, seqs = {}, {}, {}, {}, {}
+    cols = {k: [] for k in ("pdb", "group", "protein_name", "compound_name",
+                            "c_length", "native_num_contact",
+                            "use_compound_com", "pocket_com")}
+    for name, group, raw, i, kw in rows:
+        key = name.encode()
+        seq = rng.randint(0, 20, len(raw["protein_xyz"]))
+        seqs[name] = "".join(cli_preprocess._NUM_TO_LETTER[a] for a in seq)
+        protein[key] = pickle.dumps((torch.from_numpy(raw["protein_xyz"]),
+                                     torch.from_numpy(seq)))
+        esm[key] = pickle.dumps(torch.from_numpy(raw["esm_feat"]))
+        feats, edges = store_ligand(raw, i, rng)
+        n = len(feats)
+        compound[key] = pickle.dumps((
+            torch.from_numpy(raw["lig_coords"]), torch.from_numpy(feats),
+            torch.from_numpy(edges), torch.zeros(len(edges), 1),
+            torch.zeros(n, n, 16),
+            torch.from_numpy(np.stack(np.nonzero(raw["las_mask"]))
+                             .astype(np.int64))))
+        rdkit[name] = torch.from_numpy(raw["rdkit_coords"])
+        row = dict(pdb=name, group=group, protein_name=name,
+                   compound_name=name, c_length=n, native_num_contact=12,
+                   use_compound_com=True,
+                   pocket_com=raw["lig_coords"].mean(0, keepdims=True)
+                   .astype(np.float64))
+        row.update(kw)
+        for k, v in row.items():
+            cols[k].append(v)
+    save_frame(str(proc / "data.pt"),
+               {k: (np.asarray(v) if k in ("c_length", "native_num_contact",
+                                           "use_compound_com") else v)
+                for k, v in cols.items()})
+    torch.save(rdkit, proc / "compound_rdkit_coords.pt")
+    for name, items in (("protein_1d_3d.lmdb", protein),
+                        ("compound_LAS_edge_index.lmdb", compound),
+                        ("esm2_t33_650M_UR50D.lmdb", esm)):
+        write_kv(str(proc / name), items)
+    (root / "split_pdb_id").mkdir()
+    (root / "split_pdb_id" / "unseen_test_index").write_text(
+        "\n".join(STORE_UNSEEN) + "\n")
+    return seqs
+
+
+def store_split_checks(root: Path, n_req: int):
+    """The split filters: base keeps the train requests, FABind+ also the
+    120-atom row (its length cut keeps every protein here); valid and test
+    are the requests of their groups; the filtered rows are dropped."""
+    src = PDBBindLMDBSource(str(root))
+    bounds, start = {}, 0
+    for g, k in STORE_GROUPS:
+        bounds[g] = list(range(start, start + k))
+        start += k
+    xxlig = n_req + 0
+    want = {"fabind": dict(bounds),
+            "fabind_plus": dict(bounds, train=bounds["train"] + [xxlig])}
+    for variant, w in want.items():
+        got = src.splits(variant)
+        check(got == w, f"store splits({variant}) {got}")
+    print(f"store splits (rows per train, test, valid): fabind "
+          f"{[len(v) for v in want['fabind'].values()]}, fabind_plus "
+          f"{[len(v) for v in want['fabind_plus'].values()]} of {len(src)} "
+          f"rows; the c_length 120 row "
+          f"kept by FABind+ only, the contact and use_compound_com rows by "
+          f"neither")
+
+
+def inject_iso_checks(root: Path, card_line: str):
+    """cli.preprocess inject-iso: data_new.pt holds a group per row, []
+    where use_compound_com is False; identity first; every automorphism
+    maps the row's labels and bonds onto themselves; the symmetric rows'
+    groups have their size."""
+    t0 = time.perf_counter()
+    cli_preprocess.main(["inject-iso", "--data", str(root)])
+    secs = time.perf_counter() - t0
+    proc = root / "dataset" / "processed"
+    frame = load_frame(str(proc / "data_new.pt"))
+    src = PDBBindLMDBSource(str(root), use_esm2_feat=False)
+    sizes = {}
+    for i in range(len(src)):
+        isos = frame["isomorphics"][i]
+        if not frame["use_compound_com"][i]:
+            check(isos == [], f"inject-iso row {i}: {isos}")
+            continue
+        raw = src.get(i)
+        labels = iso_labels_from_arrays(raw["lig_feats"], raw["bond_edges"],
+                                        raw["bond_orders"])
+        bonds = {tuple(e) for e in raw["bond_edges"].tolist()}
+        check(np.array_equal(isos[0], np.arange(len(labels))),
+              f"inject-iso row {i}: identity first")
+        for p in isos:
+            check(np.array_equal(labels[p], labels)
+                  and {(int(p[a]), int(p[b])) for a, b in bonds} == bonds,
+                  f"inject-iso row {i}: {p} is no automorphism")
+        sizes[raw["pdb"]] = len(isos)
+    for i, kind in STORE_SYMMETRIC.items():
+        want = 6 if kind == "tert-butyl" else 2
+        check(sizes[f"r{i:02d}"] == want,
+              f"inject-iso r{i:02d} ({kind}): {sizes[f'r{i:02d}']} "
+              f"automorphisms, expected {want}")
+    n = len(frame)
+    print(f"time inject-iso: {n} complexes in {secs:.3f} s, "
+          f"{secs / n * 1e3:.2f} ms per complex; groups "
+          f"{ {k: v for k, v in sizes.items() if v > 1} } non-trivial, "
+          f"every automorphism maps labels and bonds onto themselves "
+          f"[{card_line}]")
+
+
+def loader_epoch(source, indices, cfg, buckets):
+    """One timed train epoch of the Loader (seed 0, workers 4, batch 8):
+    the batches and the seconds."""
+    loader = Loader(source, indices, cfg, batch_size=BATCH, seed=0,
+                    workers=4, buckets=buckets)
+    t0 = time.perf_counter()
+    out = list(loader.epoch(0, with_meta=True))
+    return out, time.perf_counter() - t0
+
+
+def store_npz_checks(root: Path, buckets, card_line: str):
+    """cli.preprocess pdbbind --isomorphisms writes an NPZ directory; a
+    FABind+ Loader epoch over the store's train split equals one over the
+    same rows of that directory, batch for batch, bit for bit. Times: ms
+    per source.get against ms per NPZ load, and the two Loaders'
+    samples/s."""
+    npz = root / "npz"
+    shutil.rmtree(npz, ignore_errors=True)
+    cli_preprocess.main(["pdbbind", "--data", str(root), "--out", str(npz),
+                         "--isomorphisms"])
+    src = PDBBindLMDBSource(str(root))
+    npz_src = NPZSource(str(npz))
+    names = [src.index["pdb"][i] for i in range(len(src))]
+    check(npz_src.names == sorted(names),
+          f"cli.preprocess pdbbind wrote {len(npz_src.names)} files")
+    times = {}
+    for what, get, keys in (("store", src.get, range(len(src))),
+                            ("npz", npz_src.get, names)):
+        t0 = time.perf_counter()
+        for k in keys:
+            get(k)
+        times[what] = (time.perf_counter() - t0) / len(names) * 1e3
+    print(f"time source.get ({len(names)} rows, pure-Python LMDB codec): "
+          f"{times['store']:.3f} ms per row; NPZSource.get "
+          f"{times['npz']:.3f} ms per file [{card_line}]")
+    cfg = preset("fabind_plus", **SMOKE_SHAPES)
+    idx = src.splits("fabind_plus")["train"]
+    got, t_store = loader_epoch(src, idx, cfg, buckets)
+    want, t_npz = loader_epoch(npz_src, [names[i] for i in idx], cfg,
+                               buckets)
+    check(len(got) == len(want) > 0, "Loader epochs of equal length")
+    for (a, ma), (b, mb) in zip(got, want):
+        check(ma["pdb"] == mb["pdb"] and ma["n_valid"] == mb["n_valid"],
+              f"Loader meta {ma['pdb']} vs {mb['pdb']}")
+        for k, v in a.items():
+            check((v is None) == (b[k] is None)
+                  and (v is None or np.array_equal(v, b[k])),
+                  f"Loader batch field {k}: store vs NPZ directory")
+    print(f"Loader (fabind_plus, seed 0, workers 4): {len(got)} batches of "
+          f"the store's train split bit-equal to the NPZ directory's")
+    print(f"time Loader epoch ({len(idx)} samples, workers 4): store "
+          f"{len(idx) / t_store:.1f} samples/s, NPZ directory "
+          f"{len(idx) / t_npz:.1f} samples/s [{card_line}]")
+
+
+def esm_lmdb_checks(root: Path, seqs: dict, card_line: str):
+    """cli.preprocess esm --lmdb with an encoder of phase 9's CLIs
+    (ESM_CLI_LAYERS layers at full width, seed ESM_SEED) saved as a state
+    dict: one row per protein, each equal to embed_sequences of its
+    decoded sequence in the CLI's chunks (key order, ESM_BATCH * 4 rows)."""
+    model = seeded_encoder(Esm2Config(num_layers=ESM_CLI_LAYERS), ESM_SEED,
+                           "cuda")
+    weights = STORE_ROOT / "esm.pt"
+    torch.save(model.state_dict(), weights)
+    t0 = time.perf_counter()
+    cli_preprocess.main(["esm", "--lmdb", str(root), "--esm-weights",
+                         str(weights), "--esm-batch", str(ESM_BATCH)])
+    secs = time.perf_counter() - t0
+    env = open_kv(str(root / "dataset" / "processed"
+                      / "esm2_t33_650M_UR50D.lmdb"))
+    with env.begin() as txn:
+        rows = {bytes(k).decode(): pickle.loads(v) for k, v in txn.cursor()}
+    env.close()
+    check(sorted(rows) == sorted(seqs), f"esm --lmdb rows {sorted(rows)}")
+    keys = sorted(seqs)
+    chunk = ESM_BATCH * 4
+    for c0 in range(0, len(keys), chunk):
+        part = keys[c0:c0 + chunk]
+        want = model.embed_sequences([seqs[k] for k in part],
+                                     batch_size=ESM_BATCH)
+        for k, w in zip(part, want):
+            check(rows[k].dtype == np.float32
+                  and np.array_equal(rows[k], w),
+                  f"esm --lmdb row {k} equals embed_sequences")
+    del model
+    print(f"time cli.preprocess esm --lmdb: {len(rows)} proteins in "
+          f"{secs:.2f} s (encoder load and the store's rewrite included), "
+          f"each row equal to embed_sequences [{card_line}]")
+
+
+def store_phase(raws, buckets, card_line):
+    """Phase 11: training and evaluation from the processed store. Returns
+    the gate launches of base cli.train and of cli.evaluate on the store,
+    by dtype and bucket (both fp32)."""
+    t_phase = time.perf_counter()
+    root = STORE_ROOT / "pdbbind"
+    t0 = time.perf_counter()
+    seqs = write_store(raws, root)
+    print(f"time store write ({len(seqs)} rows, pure-Python LMDB writer): "
+          f"{time.perf_counter() - t0:.2f} s [{card_line}]")
+    store_split_checks(root, sum(k for _, k in STORE_GROUPS))
+    data = str(root)
+
+    # base training from data.pt, evaluation of the valid split after the
+    # epoch; the counts set to 0 just before, read just after
+    out = STORE_ROOT / "fabind"
+    shutil.rmtree(out, ignore_errors=True)
+    with TrainProbe() as base:
+        edge_gate.KERNEL.launches = 0
+        train_cli(data, out, epochs=1)
+        launches = edge_gate.KERNEL.launches
+    check_steps(base, "store fabind")
+    check(launches == sum(base.launches_by_bucket().values()) > 0,
+          f"store training: gate launches {launches} outside the steps")
+    check(len(base.evals) > 0, "store training evaluated its valid split")
+    print(f"train store fabind fp32 {len(base.steps)} steps from data.pt: "
+          f"gate launches {launches} (train steps "
+          f"{sum(r['launches'] for r in base.steps)}, eval "
+          f"{sum(r['launches'] for r in base.evals)} in {len(base.evals)} "
+          f"batches)")
+    report_run(base, out, "store fabind fp32", card_line)
+
+    # cli.evaluate on the test split, restricted to the unseen ids
+    evals = {}
+    for stage in (2, 1):
+        with EvalProbe() as probe:
+            m = evaluate_cli(str(out), data, STORE_ROOT / f"eval_s{stage}",
+                             "--split", "test", "--stage", str(stage),
+                             "--unseen-index", str(root / "split_pdb_id"
+                                                   / "unseen_test_index"))
+        check(m["n"] == len(STORE_UNSEEN), f"cli.evaluate n {m['n']}")
+        check(sorted(per_pdb(STORE_ROOT / f"eval_s{stage}"))
+              == list(STORE_UNSEEN), "cli.evaluate scored the unseen ids")
+        for r in probe.forwards:
+            check(r["launches"] == 33,
+                  f"cli.evaluate stage {stage} bucket {r['label']}: "
+                  f"{r['launches']} gate launches")
+        check(len(probe.launches_by_bucket()) == len(buckets),
+              f"cli.evaluate on the unseen ids ran buckets "
+              f"{sorted(probe.launches_by_bucket())}")
+        for label, n in probe.launches_by_bucket().items():
+            evals[label] = evals.get(label, 0) + n
+        print(f"eval store stage {stage} (test split, unseen ids): n "
+              f"{m['n']}, rmsd_mean {m['rmsd_mean']:.3f}, "
+              f"{len(probe.forwards)} batches of 33 gate launches, "
+              f"{m['complexes_per_sec']:.2f} complexes/s [{card_line}]")
+
+    # FABind+: automorphisms into data_new.pt, the store against its NPZ
+    # conversion, a bf16 epoch from data_new.pt
+    inject_iso_checks(root, card_line)
+    store_npz_checks(root, buckets, card_line)
+    out = STORE_ROOT / "fabind_plus"
+    shutil.rmtree(out, ignore_errors=True)
+    with TrainProbe() as plus:
+        edge_gate.KERNEL.launches = 0
+        train_cli(data, out, "--bf16", "--eval-every", "0",
+                  preset_name="fabind_plus", epochs=1)
+        plus_launches = edge_gate.KERNEL.launches
+    check_steps(plus, "store fabind_plus", eval_launches=0)
+    check(plus_launches == 0, "store fabind_plus launched the gate")
+    iso = [n for r in plus.steps for n in r["iso"]]
+    check(sum(n > 1 for n in iso) >= 2,
+          f"store fabind_plus: iso_mask rows with more than one true entry "
+          f"{iso}")
+    print(f"train store fabind_plus bf16 {len(plus.steps)} steps from "
+          f"data_new.pt: gate launches 0; iso_mask true entries per row "
+          f"{sorted(iso, reverse=True)[:6]}...")
+    report_run(plus, out, "store fabind_plus bf16", card_line)
+
+    esm_lmdb_checks(root, seqs, card_line)
+    print(f"time phase 11 (processed store) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return ({torch.float32: base.launches_by_bucket()},
+            {torch.float32: evals})
+
+
+def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
-    per batch, with the serving path's launch counts; and one per (dtype,
-    bucket) of the training path, of the evaluation path (fp32 only), of
-    the dock_sdf path and of the exported serving path (bf16 only), with
-    their launch counts (their batches have the served shapes)."""
+    per batch, for each path of `paths` ((name prefix, {dtype: {bucket:
+    launches}}): serving, training, evaluation, dock_sdf, exported serving,
+    training and evaluation from the processed store) that ran in that
+    dtype, with its launch counts (its batches have the served shapes)."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -2398,10 +2766,7 @@ def time_kernel_rows(served, max_err, launches, train_launches,
                   f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms, "
                   f"MUFU floor {f_ms:.4f} ms; device time per batch "
                   f"{k_ms * n:.4f} ms [{card_line}]")
-            for path, counts in (("", launches), ("train ", train_launches),
-                                 ("evaluate ", eval_launches),
-                                 ("dock_sdf ", sdf_launches),
-                                 ("exported ", exported_launches)):
+            for path, counts in paths:
                 if dtype not in counts:
                     continue
                 rows.append({
@@ -2561,10 +2926,20 @@ def main(argv=None) -> int:
     exported_launches = export_phase(raws, buckets, poses, plus_poses,
                                      card_line)
 
+    # ---- 11. training and evaluation from the processed PDBbind store
+    torch.cuda.empty_cache()
+    store_train_launches, store_eval_launches = store_phase(raws, buckets,
+                                                            card_line)
+
     # ---- 4b. kernel times
-    rows = time_kernel_rows(served, max_err, main_launches, train_launches,
-                            eval_launches, sdf_launches, exported_launches,
-                            sms, clock_hz, card_line)
+    rows = time_kernel_rows(
+        served, max_err,
+        [("", main_launches), ("train ", train_launches),
+         ("evaluate ", eval_launches), ("dock_sdf ", sdf_launches),
+         ("exported ", exported_launches),
+         ("train store ", store_train_launches),
+         ("evaluate store ", store_eval_launches)],
+        sms, clock_hz, card_line)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

@@ -1,16 +1,19 @@
-"""Evaluation entry point: score a checkpoint on a directory of complexes.
+"""Evaluation entry point: score a checkpoint on a dataset of complexes.
 
 Counterpart of fabind_tpu/cli/evaluate.py, on the GPU by default:
 
-  python -m fabind_tpu_torch.cli.evaluate --preset fabind --data NPZ_DIR \\
+  python -m fabind_tpu_torch.cli.evaluate --preset fabind --data DATA \\
       --ckpt best_model.bin [--split test] [--unseen-index FILE] \\
       [--stage 2] [--post-optim] [--distmap-dock] [--symmetric-rmsd] \\
       [--save-rmsd out.txt] [--write-coords-dir DIR] [--buckets auto] \\
       [--out metrics.json] [--device cpu]
 
-The model runs in float32, one module for every shape bucket (the bucket's
-shapes go to the forward). The JSON is `MetricAccumulator.summarize()` plus
-`complexes_per_sec` and `n_dropped_oversize`, with the JAX CLI's keys.
+`--data` is the reference's processed PDBbind store (`--split` picks its
+valid or test rows under the preset's filters) or a directory of .npz
+samples (all of them). The model runs in float32, one module for every
+shape bucket (the bucket's shapes go to the forward). The JSON is
+`MetricAccumulator.summarize()` plus `complexes_per_sec` and
+`n_dropped_oversize`, with the JAX CLI's keys.
 `--ckpt` takes a released-format `.bin`/`.pt`, a `save_params` file or a
 `cli.train` run (or its checkpoint directory). `--profile-dir` writes a
 torch.profiler Chrome trace of the evaluation loop.
@@ -28,7 +31,7 @@ import torch
 from fabind_tpu_torch.cli.common import load_model, resolve_device
 from fabind_tpu_torch.config import parse_overrides, preset
 from fabind_tpu_torch.data.buckets import resolve_buckets
-from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.dataset import Loader, NPZSource, open_source
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.postopt import distance_dock_best_of, post_optimize_batch
 from fabind_tpu_torch.train.trainer import eval_forward
@@ -41,13 +44,16 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--preset", default="fabind",
                    choices=["fabind", "fabind_plus"])
     p.add_argument("--data", required=True,
-                   help="directory of per-complex .npz samples")
+                   help="the reference's processed PDBbind root or a "
+                        "directory of per-complex .npz samples")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--split", default="test", choices=["valid", "test"],
-                   help="the loader group (an NPZ directory has no splits)")
+                   help="the store's split and the loader group (an NPZ "
+                        "directory has no splits)")
     p.add_argument("--unseen-index", default=None,
                    help="file of pdb ids, one per line, to restrict the "
-                        "directory to (NPZ names are the pdb ids)")
+                        "split to (a store's pdb column, else its "
+                        "compound_name; NPZ names are the pdb ids)")
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
                    help="config override (any ModelConfig/ShapeConfig/"
@@ -98,11 +104,18 @@ def main(argv=None) -> dict:
     cfg = preset(args.preset, **overrides)
     model = load_model(cfg, args.ckpt, device)
 
-    source, indices = open_source(args.data)
+    source, indices = open_source(args.data, variant=args.preset,
+                                  split=args.split,
+                                  use_esm2_feat=cfg.model.use_esm2_feat)
     if args.unseen_index:
         with open(args.unseen_index) as f:
             wanted = {line.strip() for line in f if line.strip()}
-        indices = [n for n in indices if n in wanted]
+        if isinstance(source, NPZSource):
+            indices = [n for n in indices if n in wanted]
+        else:
+            ids = source.index["pdb" if "pdb" in source.index
+                               else "compound_name"]
+            indices = [i for i in indices if str(ids[i]) in wanted]
         if not indices:
             raise SystemExit(f"--unseen-index {args.unseen_index}: no ids "
                              f"from the file are present in {args.data}")

@@ -1,14 +1,16 @@
-"""Best-of-N sampling over a directory of complexes (FABind+).
+"""Best-of-N sampling over a dataset (FABind+).
 
 Counterpart of fabind_tpu/cli/sample.py `main`, on the GPU by default:
 
-  python -m fabind_tpu_torch.cli.sample --ckpt CKPT --data NPZ_DIR \\
+  python -m fabind_tpu_torch.cli.sample --ckpt CKPT --data DATA \\
       [--preset fabind_plus_sampling] [--sample-size 40] [--batch-size 4] \\
       [--seed 0] [--pocket-mode stochastic|fixed] [--topn 1] \\
       [--save-rmsd-dir DIR] [--symmetric-rmsd] [--out metrics.json] \\
       [--device cpu]
 
-Each batch runs `sample.sample_poses` (sample_size stochastic passes,
+`--data` is the reference's processed PDBbind store (`--split` picks its
+rows under FABind+'s filters) or a directory of .npz samples. Each batch
+runs `sample.sample_poses` (sample_size stochastic passes,
 float32); per complex the best RMSD and centroid distance among the top-N
 poses by confidence are summarized, as the reference benchmark does
 (N = 1). `--ckpt` takes what `checkpoints.load_weights` reads; a confidence
@@ -48,9 +50,11 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--preset", default="fabind_plus_sampling")
     p.add_argument("--ckpt", required=True)
     p.add_argument("--data", required=True,
-                   help="directory of per-complex .npz samples")
+                   help="the reference's processed PDBbind root or a "
+                        "directory of per-complex .npz samples")
     p.add_argument("--split", default="test",
-                   help="the loader group (an NPZ directory has no splits)")
+                   help="the store's split and the loader group (an NPZ "
+                        "directory has no splits)")
     p.add_argument("--sample-size", type=int, default=40)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--dp", type=int, default=1,
@@ -92,7 +96,9 @@ def main(argv=None) -> dict:
     cfg = preset(args.preset, **overrides)
     model = load_model(cfg, args.ckpt, device)
 
-    source, indices = open_source(args.data)
+    source, indices = open_source(args.data, variant="fabind_plus",
+                                  split=args.split,
+                                  use_esm2_feat=cfg.model.use_esm2_feat)
     loader = Loader(source, indices, cfg, group=args.split,
                     batch_size=args.batch_size, workers=8, prefetch_depth=2)
     # [S, n] per-complex arrays across the sampling passes

@@ -6,7 +6,7 @@ Usage:
       --preset fabind|fabind_plus|fabind_plus_sampling --ckpt best_model.bin \
       [--host 127.0.0.1] [--port 8400] [--batch-size 8] [--no-bf16] \
       [--post-optim-steps N] [--warmup] \
-      [--buckets l:p:r,l:p:r | --buckets auto[:K] --data NPZ_DIR] \
+      [--buckets l:p:r,l:p:r | --buckets auto[:K] --data DATA] \
       [--set KEY=VALUE ...] [--device cuda|cpu] \
       [--esm-weights PATH] [--pdb-root DIR]
 
@@ -45,8 +45,9 @@ def main(argv=None):
                         "'auto'/'auto:K' to infer up to K (default 3) "
                         "buckets from --data's size distribution")
     p.add_argument("--data", default=None,
-                   help="directory of .npz samples that '--buckets auto' "
-                        "measures")
+                   help="what '--buckets auto' measures: the reference's "
+                        "processed PDBbind root (its test split) or a "
+                        "directory of .npz samples")
     p.add_argument("--warmup", action="store_true",
                    help="run one batch in every bucket before binding the "
                         "port")
@@ -108,7 +109,9 @@ def main(argv=None):
             raise SystemExit("--buckets auto requires --data to measure "
                              "the complex-size distribution")
         from fabind_tpu_torch.data.dataset import open_source
-        source, indices = open_source(args.data)
+        source, indices = open_source(args.data, variant=args.preset,
+                                      split="test",
+                                      use_esm2_feat=cfg.model.use_esm2_feat)
     buckets = resolve_buckets(args.buckets, cfg, source, indices,
                               group="test")
     if buckets is not None:

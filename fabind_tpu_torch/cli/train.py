@@ -2,11 +2,13 @@
 
 Counterpart of fabind_tpu/cli/train.py on one card:
 
-  python -m fabind_tpu_torch.cli.train --preset fabind --data NPZ_DIR \\
+  python -m fabind_tpu_torch.cli.train --preset fabind --data DATA \\
       --output runs/exp1 [--epochs N] [--batch-size B] [--bf16]
 
-Trains on the first 90% of the directory's samples (sorted by name) and
-evaluates on the rest at stages 1 and 2; checkpoints under <output>/ckpt
+`--data` is the reference's processed PDBbind store (its train and valid
+splits under the preset's filters) or a directory of .npz samples (the
+first 90% by name train, the rest validate). Evaluates at stages 1 and 2;
+checkpoints under <output>/ckpt
 (`--resume` continues from the latest, mid-epoch included); on SIGTERM or
 SIGINT it finishes the step in flight, checkpoints with the data-order
 position and exits 0. Runs on CUDA; `--device cpu` runs on the CPU.
@@ -29,7 +31,7 @@ import torch
 from fabind_tpu_torch.cli.common import resolve_device
 from fabind_tpu_torch.config import parse_overrides, preset
 from fabind_tpu_torch.data.buckets import resolve_buckets
-from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.dataset import Loader, NPZSource, open_source
 from fabind_tpu_torch.data.types import FABindBatch, to_device
 from fabind_tpu_torch.train.checkpoints import TrainCheckpointer
 from fabind_tpu_torch.train.trainer import Trainer
@@ -48,7 +50,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--preset", default="fabind",
                    choices=["fabind", "fabind_plus"])
     p.add_argument("--data", required=True,
-                   help="directory of per-complex .npz samples")
+                   help="the reference's processed PDBbind root (data.pt "
+                        "or data_new.pt under dataset/processed) or a "
+                        "directory of per-complex .npz samples")
     p.add_argument("--output", default="runs/default")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -129,9 +133,14 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
     logger.log_message(f"device: {device}"
                        + (f" ({torch.cuda.get_device_name(device)})"
                           if device.type == "cuda" else ""))
-    source, names = open_source(args.data)
-    n = len(names)
-    splits = {"train": names[: int(0.9 * n)], "valid": names[int(0.9 * n):]}
+    source, _ = open_source(args.data, variant=args.preset,
+                            use_esm2_feat=cfg.model.use_esm2_feat)
+    if isinstance(source, NPZSource):
+        n = len(source.names)
+        splits = {"train": source.names[: int(0.9 * n)],
+                  "valid": source.names[int(0.9 * n):], "test": []}
+    else:
+        splits = source.splits(args.preset)
     logger.log_message(f"splits: { {k: len(v) for k, v in splits.items()} }")
     buckets = resolve_buckets(args.buckets, cfg, source, splits["train"],
                               group="train")

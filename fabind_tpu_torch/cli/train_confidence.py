@@ -2,11 +2,14 @@
 
 Counterpart of fabind_tpu/cli/train_confidence.py, on the GPU by default:
 
-  python -m fabind_tpu_torch.cli.train_confidence --data NPZ_DIR \\
+  python -m fabind_tpu_torch.cli.train_confidence --data DATA \\
       --init-ckpt runs/reg [--torch-ckpt fabind_plus_best_ckpt.bin] \\
       --output runs/conf [--pose-source teacher|inference] [--device cpu]
 
-Loads a FABind+ regression checkpoint (a `cli.train` run with
+`--data` is the reference's processed PDBbind store (its train and valid
+rows under FABind+'s filters, as the reference trains the head) or a
+directory of .npz samples (all of them). Loads a FABind+ regression
+checkpoint (a `cli.train` run with
 --init-ckpt, a released-format `.bin` with --torch-ckpt; either goes
 through `checkpoints.load_weights`, and the confidence head it lacks keeps
 its seeded init), freezes everything but the head, and
@@ -27,7 +30,7 @@ import torch
 
 from fabind_tpu_torch.cli.common import load_model, resolve_device
 from fabind_tpu_torch.config import parse_overrides, preset
-from fabind_tpu_torch.data.dataset import Loader, open_source
+from fabind_tpu_torch.data.dataset import Loader, NPZSource, open_source
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.train.checkpoints import save_params
 from fabind_tpu_torch.train.confidence import (build_confidence_optimizer,
@@ -43,7 +46,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     p.add_argument("--data", required=True,
-                   help="directory of per-complex .npz samples")
+                   help="the reference's processed PDBbind root or a "
+                        "directory of per-complex .npz samples")
     p.add_argument("--output", default="runs/confidence")
     p.add_argument("--init-ckpt", default=None,
                    help="a fabind_plus cli.train run (or its ckpt/ "
@@ -99,7 +103,13 @@ def main(argv=None) -> int:
     logger = Logger(args.output)
     try:
         logger.log_message(f"device: {device}")
-        source, names = open_source(args.data)
+        source, names = open_source(args.data, variant="fabind_plus",
+                                    use_esm2_feat=cfg.model.use_esm2_feat)
+        if not isinstance(source, NPZSource):
+            # the reference trains the head on the train and valid groups
+            # (train_confidence.py:132-133)
+            splits = source.splits("fabind_plus")
+            names = splits["train"] + splits["valid"]
         logger.log_message(f"confidence train set: {len(names)} complexes")
         loader = Loader(source, names, cfg, group="train",
                         seed=cfg.train.seed, workers=8, prefetch_depth=2)

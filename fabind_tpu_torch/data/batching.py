@@ -166,10 +166,10 @@ def build_sample(raw: Dict[str, np.ndarray], cfg: FABindConfig,
         prot_feat = np.asarray(raw["esm_feat"], np.float32)
     else:
         # 15-d geometric features (fabind_tpu/data/featurize.py
-        # protein_gvp_features) are ported with the ESM2/featurization slice
+        # protein_gvp_features) are not ported yet
         raise NotImplementedError(
-            "use_esm2_feat=False / esm2_concat_raw protein features are "
-            "ported with the featurization slice")
+            "use_esm2_feat=False / esm2_concat_raw protein features are not "
+            "ported yet (ROADMAP queue 1, GVP protein features)")
 
     return {
         "lig_feat": np.asarray(raw["lig_feats"], np.float32),

@@ -1,9 +1,13 @@
-"""Dataset reader and the training loader.
+"""Dataset readers and the training loader.
 
-Own copy of the parts of fabind_tpu/data/dataset.py that one process on one
-card needs:
-- `NPZSource`: a directory of per-complex .npz files (fabind_tpu.cli.
-  preprocess writes them); `open_source` opens one;
+Own copy of fabind_tpu/data/dataset.py for one process on one card:
+- `PDBBindLMDBSource`: the reference's processed PDBbind store
+  (`{root}/dataset/processed`: the index data.pt, or data_new.pt with
+  FABind+'s `isomorphics` column, read without pandas by `data.frame`; the
+  protein, compound and ESM2 LMDB stores through `data.kv`;
+  compound_rdkit_coords.pt) with the reference's split filters;
+- `NPZSource`: a directory of per-complex .npz files (cli.preprocess writes
+  them); `open_source` opens either;
 - `prefetch`: run a batch iterator in a background thread;
 - `Loader`: shuffled, shape-bucketed, fixed-size batches of collated numpy
   arrays, with per-sample featurization on `workers` threads, `skip_batches`
@@ -11,15 +15,14 @@ card needs:
   every bucket. For one seed and source it yields the JAX Loader's batches
   bit for bit.
 
-Not here yet: the reference's processed-LMDB store (`PDBBindLMDBSource`,
-with data/kv.py and data/mdb.py) and the multi-process sharding
-(`host_shard` and its global bucket schedule), which come with data-parallel
-training.
+Not here yet: the multi-process sharding (`host_shard` and its global
+bucket schedule), which comes with data-parallel training (ROADMAP queue 1).
 """
 from __future__ import annotations
 
 import itertools
 import os
+import pickle
 import queue
 import threading
 from collections import deque
@@ -27,10 +30,13 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from fabind_tpu_torch.config import FABindConfig
 from fabind_tpu_torch.data.batching import build_sample, collate
 from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
+from fabind_tpu_torch.data.frame import load_frame
+from fabind_tpu_torch.data.kv import open_kv
 
 
 class NPZSource:
@@ -51,21 +57,149 @@ class NPZSource:
             return {k: z[k] for k in z.files}
 
 
+# torchdrug relation ids of the compound store's edge list
+# (feature_utils.py:170 edge_list[:, 2]: SINGLE, DOUBLE, TRIPLE, AROMATIC)
+# -> bond orders
+_RELATION_ORDER = {0: 1.0, 1: 2.0, 2: 3.0, 3: 1.5}
+
+
+class PDBBindLMDBSource:
+    """Reader of the reference's processed store (`{root}/dataset/processed`)
+    with the keys the JAX source's `get` returns."""
+
+    def __init__(self, root: str, use_esm2_feat: bool = True):
+        p = os.path.join(root, "dataset", "processed")
+        # FABind+ stores ship data_new.pt (adds the isomorphics column,
+        # FABind_plus/fabind/data.py:62); prefer it when present
+        idx_path = os.path.join(p, "data_new.pt")
+        if not os.path.exists(idx_path):
+            idx_path = os.path.join(p, "data.pt")
+        self.index = load_frame(idx_path)   # rows are positions
+        self.rdkit_coords = torch.load(
+            os.path.join(p, "compound_rdkit_coords.pt"), weights_only=False)
+
+        def kv(name):
+            # max_readers sized for the Loader's worker threads (each
+            # read-only transaction takes a reader slot)
+            return open_kv(os.path.join(p, name), readonly=True,
+                           max_readers=128, lock=False, readahead=False,
+                           meminit=False)
+
+        self.protein_db = kv("protein_1d_3d.lmdb")
+        self.compound_db = kv("compound_LAS_edge_index.lmdb")
+        self.esm_db = kv("esm2_t33_650M_UR50D.lmdb") if use_esm2_feat else None
+
+    def __len__(self):
+        return len(self.index)
+
+    def splits(self, variant: str = "fabind",
+               cut_protein_length: Optional[int] = None
+               ) -> Dict[str, List[int]]:
+        """The reference's split filters (data.py:110-119; FABind+
+        data.py:128-138) as row positions in index order.
+
+        FABind+ trains with cut_train_set (protein_length < 1500) and
+        expand_clength_set (c_length < 150); cut_protein_length=0 disables
+        the length cut."""
+        d = self.index
+        group = np.asarray(d["group"], object)
+        use = np.asarray(d["use_compound_com"], bool)
+        c_max = 100 if variant == "fabind" else 150
+        if variant != "fabind" and cut_protein_length is None:
+            cut_protein_length = 1500
+        train = ((np.asarray(d["c_length"]) < c_max)
+                 & (np.asarray(d["native_num_contact"]) > 5)
+                 & (group == "train") & use)
+        out = {"train": np.flatnonzero(train).tolist()}
+        if cut_protein_length:
+            names = d["protein_name"]
+            lens = self._protein_lengths(
+                dict.fromkeys(names[i] for i in out["train"]))
+            out["train"] = [i for i in out["train"]
+                            if lens[names[i]] < cut_protein_length]
+        for g in ("valid", "test"):
+            out[g] = np.flatnonzero((group == g) & use).tolist()
+        return out
+
+    def _protein_lengths(self, names) -> Dict[str, int]:
+        """Sequence length per protein (FABind+ data.py:42-58 builds its
+        protein_length column the same way, from the LMDB sequences)."""
+        out = {}
+        with self.protein_db.begin() as txn:
+            for name in names:
+                _, seq = pickle.loads(txn.get(str(name).encode()))
+                out[str(name)] = len(seq)
+        return out
+
+    def get(self, idx: int) -> Dict[str, np.ndarray]:
+        line = self.index.row(idx)
+        pname = line["protein_name"]
+        cname = line["compound_name"]
+        with self.protein_db.begin() as txn:
+            protein_xyz, _ = pickle.loads(txn.get(pname.encode()))
+        esm_feat = None
+        if self.esm_db is not None:
+            with self.esm_db.begin() as txn:
+                esm_feat = pickle.loads(txn.get(pname.encode()))
+        with self.compound_db.begin() as txn:
+            rec = pickle.loads(txn.get(cname.encode()))
+        # (coords, node_feats, edge_list, edge_attr, pair_dis_distribution,
+        #  LAS_edge_index)
+        coords, feats, edge_list, _, _, las_edge_index = rec
+
+        def npy(x):
+            return np.asarray(x.numpy() if hasattr(x, "numpy") else x)
+
+        n = npy(feats).shape[0]
+        las = np.zeros((n, n), bool)
+        las_e = npy(las_edge_index)
+        las[las_e[0], las_e[1]] = True
+        el = npy(edge_list)
+        out = {
+            "protein_xyz": npy(protein_xyz).astype(np.float32),
+            "lig_coords": npy(coords).astype(np.float32),
+            "lig_feats": npy(feats).astype(np.float32),
+            "bond_edges": el[:, :2].astype(np.int64),
+            "las_mask": las,
+            "rdkit_coords": npy(self.rdkit_coords[cname]).astype(np.float32),
+            "pdb": line.get("pdb", cname),
+            "group": line.get("group", "train"),
+        }
+        if esm_feat is not None:   # absent when use_esm2_feat=False
+            out["esm_feat"] = npy(esm_feat).astype(np.float32)
+        if el.ndim == 2 and el.shape[1] >= 3:
+            out["bond_orders"] = np.asarray(
+                [_RELATION_ORDER.get(int(t), 0.0) for t in el[:, 2]],
+                np.float32)
+        # rows inject-iso skipped hold NaN (a float), not a list
+        isos = line.get("isomorphics")
+        if isinstance(isos, (list, tuple, np.ndarray)) and len(isos):
+            out["isomorphisms"] = np.stack(
+                [np.asarray(p, np.int32) for p in isos])
+        return out
+
+
 _SENTINEL = object()
 
 
-def open_source(root: str):
-    """A directory of .npz samples: (NPZSource, its sample names). The
-    reference's processed-LMDB layout is not read yet, and raises."""
+def open_source(root: str, variant: str = "fabind",
+                split: Optional[str] = None, use_esm2_feat: bool = True):
+    """Open `root` as the reference's processed store if it holds one, else
+    as a directory of .npz samples. Returns (source, indices): a store's
+    rows of `split` under `variant`'s filters (None for split=None), or all
+    of a directory's sample names (it has no splits)."""
     p = os.path.join(root, "dataset", "processed")
     if (os.path.exists(os.path.join(p, "data.pt"))
             or os.path.exists(os.path.join(p, "data_new.pt"))):
-        raise NotImplementedError(
-            f"{root}: the reference's processed-LMDB dataset is not read by "
-            f"the port yet; convert it to an NPZ directory")
+        src = PDBBindLMDBSource(root, use_esm2_feat=use_esm2_feat)
+        if split is None:
+            return src, None
+        return src, src.splits(variant)[split]
     names = [f for f in os.listdir(root) if f.endswith(".npz")]
     if not names:
-        raise FileNotFoundError(f"{root}: no .npz samples")
+        raise FileNotFoundError(
+            f"{root}: neither a processed store ({p}/data.pt missing) nor "
+            f"a directory of .npz samples")
     src = NPZSource(root)
     return src, list(src.names)
 

@@ -378,7 +378,9 @@ def test_cli_preprocess_esm_and_inference_match_jax(setup, tmp_path):
     within ESM_ATOL of the JAX CLI's (its flax encoder); `inference` with
     sdf rows and a SMILES row (skipped on both sides): the NPZ files hold
     the JAX CLI's keys and values, and the directory is read back by
-    NPZSource and docked. The modes and flags not ported raise."""
+    NPZSource and docked; with --isomorphisms each file also holds the
+    ligand's full automorphism group as JAX's VF2 enumerates it, in its
+    order. --esm-dp, not ported, raises."""
     esm_pt = tmp_path / "esm.pt"
     torch.save(setup["esm"].state_dict(), esm_pt)
     seqs = {f"s{i}": F.parse_pdb_atoms(p)["seq"]
@@ -430,15 +432,20 @@ def test_cli_preprocess_esm_and_inference_match_jax(setup, tmp_path):
     assert all(p.error is None and np.isfinite(p.coords).all()
                for p in poses)
 
-    for argv in (["inference", "--index", str(idx), "--out", "x",
-                  "--isomorphisms"] + port,
-                 ["esm", "--lmdb", "x"] + port,
-                 ["esm", "--seqs", str(fasta), "--out", "x", "--esm-dp",
-                  "2"] + port,
-                 ["pdbbind", "--data", "x", "--out", "y"],
-                 ["inject-iso", "--data", "x"]):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            cli_preprocess.main(argv)
+    from fabind_tpu.data.isomorphism import automorphisms_from_graph
+    cli_preprocess.main(["inference", "--index", str(idx), "--out",
+                         str(tmp_path / "iso"), "--isomorphisms"] + port)
+    for n in names:
+        with np.load(tmp_path / "iso" / f"{n}.npz") as a, \
+                np.load(tmp_path / "jnpz" / f"{n}.npz") as b:
+            assert sorted(a.files) == sorted(b.files + ["isomorphisms"])
+            want = automorphisms_from_graph(
+                b["lig_feats"].shape[0], b["bond_edges"], b["iso_labels"],
+                max_iso=None)
+            np.testing.assert_array_equal(a["isomorphisms"], want)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        cli_preprocess.main(["esm", "--seqs", str(fasta), "--out", "x",
+                             "--esm-dp", "2"] + port)
 
 
 def test_cli_serve_takes_an_encoder_and_a_pdb_root(setup, tmp_path,

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package (nor
-scikit-learn, networkx, BioPython, RDKit or transformers, which the card's
-machine lacks), and it never falls back to the CPU on its own."""
+scikit-learn, networkx, pandas, pyarrow, BioPython, RDKit or transformers,
+which the card's machine lacks), and it never falls back to the CPU on its
+own."""
 import json
 import pkgutil
 import subprocess
@@ -28,7 +29,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "cli.evaluate", "cli.sample", "cli.train_confidence",
               "train.confidence", "models.esm2", "data.featurize",
               "cli.inference", "cli.preprocess", "aot", "cli.export",
-              "cli.selftest"):
+              "cli.selftest", "data.mdb", "data.kv", "data.frame",
+              "data.isomorphism"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -36,7 +38,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'flax', 'fabind_tpu', 'sklearn', 'networkx', "
-        "'Bio', 'rdkit', 'transformers'))\n"
+        "'pandas', 'pyarrow', 'Bio', 'rdkit', 'transformers'))\n"
         "print(json.dumps(bad))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
@@ -69,21 +71,37 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence",
                                  "inference", "preprocess", "export",
-                                 "selftest"])
+                                 "selftest", "preprocess-lmdb"])
 def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
     """Without --device cpu the CLIs run on CUDA, and raise without it
     (before reading anything)."""
     import importlib
-    mod = importlib.import_module(f"fabind_tpu_torch.cli.{cli}")
+    mod = importlib.import_module(
+        f"fabind_tpu_torch.cli.{cli.split('-')[0]}")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     none = str(tmp_path / "none")
     argv = {"inference": ["--ckpt", none, "--esm-weights", none, "--index",
                           none, "--pdb-dir", none, "--output", none],
             "preprocess": ["esm", "--seqs", none, "--out", none,
                            "--esm-weights", none],
+            "preprocess-lmdb": ["esm", "--lmdb", none, "--esm-weights",
+                                none],
             "train_confidence": ["--data", str(tmp_path)],
             "export": ["--ckpt", none + ".bin", "--output", none],
             "selftest": []}.get(
         cli, ["--data", str(tmp_path), "--ckpt", none + ".bin"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         mod.main(argv)
+
+
+@pytest.mark.parametrize("mode", ["pdbbind", "inject-iso"])
+def test_host_preprocess_modes_need_no_cuda(monkeypatch, tmp_path, mode):
+    """cli.preprocess pdbbind and inject-iso run on the host only: without
+    CUDA they get as far as reading the store (here: a missing one)."""
+    from fabind_tpu_torch.cli import preprocess
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [mode, "--data", str(tmp_path / "none")]
+    if mode == "pdbbind":
+        argv += ["--out", str(tmp_path / "out")]
+    with pytest.raises(FileNotFoundError):
+        preprocess.main(argv)
