@@ -4,13 +4,19 @@
 
 Phases, each of which raises on failure (non-zero exit):
   1. card and build: the card's name and power limit; every CUDA kernel of
-     the port is compiled from the sources in this checkout (nvcc, sm_90a);
+     the port (edge_gate.cu, dropout.cu) is compiled from the sources in
+     this checkout (nvcc, sm_90a, one process per source, in parallel);
   2. each kernel against its plain PyTorch version on the card: the edge
      gate's paired launch (both attention directions) at every shape the two
      served buckets launch it with, in fp32 and bf16, a ragged pair, H = 100
      and pre-activations up to +-100 (with w2 unscaled, held to float64 no
      worse than the plain fp32 version); both activations and the
-     gradients at a small shape;
+     gradients at a small shape. The dropout kernel bit for bit (mask and
+     values) at the largest dropout shape of each bucket's FABind+
+     sampling pass and a ragged one, fp32 and bf16, rates 0.1 and 0.5; the
+     plain version on the CPU on a copy draws the same; Random123's
+     Philox4x32-10 known answers through the library's test entry; the
+     backward equal to grad x mask x scale;
   3. the main path as it is deployed: `DockingEngine.dock_raw` at preset
      `fabind` full width, bf16, over two shape buckets, on 32 seeded
      synthetic requests (seeded random weights): one finite pose per request,
@@ -52,8 +58,8 @@ Phases, each of which raises on failure (non-zero exit):
      kernel against one with the plain gate, a NaN batch leaving the
      parameters and the optimizer bit for bit, remat on and off with dropout
      on, bf16 within 10% of fp32. Times: train step ms per bucket (fp32,
-     bf16, bf16 with remat), samples/s over an epoch, peak device memory,
-     the phase's wall time;
+     bf16, bf16 with remat), dropout launches per step, samples/s over an
+     epoch, peak device memory, the phase's wall time;
   8. evaluation and confidence training, from phase 7's NPZ directory and
      runs: `cli.evaluate.main` of the fp32 base run over all 32 complexes at
      stages 2 and 1 (JAX's JSON keys, finite RMSDs, n = complexes less
@@ -127,7 +133,23 @@ Phases, each of which raises on failure (non-zero exit):
      embed_sequences). Times: the store's
      write, ms per source.get against ms per NPZ load, Loader samples/s
      over both, inject-iso ms per complex, train step ms and samples/s,
-     evaluation complexes/s, the phase's wall time.
+     evaluation complexes/s, the phase's wall time;
+ 12. exported best-of-N sampling: phase 6's seeded weights exported by
+     `cli.export --sampling` (bf16, stochastic pocket mode, the small
+     bucket; the large one is cut for time) on the card, in a process of
+     its own started before phase 7 so that it runs beside phases 7-11.
+     `from_exported` serves phase 3's 8 small-bucket requests at best-of-8,
+     seed 3: poses and confidences equal to the live bf16 engine's
+     dock_best_of bit for bit; another seed other poses; dropout launches
+     equal to what the site list and the drawn recycle counts predict
+     (exported and live), 0 gate launches; the largest tensor a pass drops
+     out has phase 2's shape; `/dock_best_of` of a `cli.serve --exported`
+     daemon process equals the engine (phase 10 checks that an artifact
+     without --sampling still refuses). Times: export seconds and bytes,
+     load seconds, ms per pocket and dock half (live with int counts, live
+     with tensor counts and exported), best-of-8 complexes/s live and
+     exported, the dropout kernel's ms per launch beside its bound, its
+     plain version and torch.rand + torch.where, the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -189,14 +211,14 @@ from fabind_tpu_torch.models.att_model import EfficientMCAttModel
 from fabind_tpu_torch.models.esm2 import (PAD_ID, Esm2Config, Esm2Model,
                                          load_esm2, tokenize)
 from fabind_tpu_torch.models.fabind import init_params, make_model
-from fabind_tpu_torch.models.layers import dropout_rng
-from fabind_tpu_torch.ops import edge_gate
+from fabind_tpu_torch.ops import dropout, edge_gate
 from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
 from fabind_tpu_torch.ops.geometry import pairwise_dist
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
 from fabind_tpu_torch.postopt import configuration_loss
-from fabind_tpu_torch.sample import (dbscan_clusters, pass_generator,
-                                     sample_poses)
+from fabind_tpu_torch.sample import (dbscan_clusters, live_halves,
+                                     pass_seed, recycle_counts, sample_poses,
+                                     stochastic_dock, stochastic_pocket)
 from fabind_tpu_torch.serve import DockingEngine
 from fabind_tpu_torch.serve_http import make_server
 from fabind_tpu_torch.train.checkpoints import (HEAD_PREFIXES,
@@ -333,6 +355,26 @@ STORE_FILTERED = (("xxlig", dict(c_length=120)),
                   ("xxcom", dict(use_compound_com=False)))
 STORE_UNSEEN = ("r25", "r26", "r27")
 STORE_SEQ_SEED = 11
+# the dropout kernel (phase 2): rates, a ragged length (not a multiple of
+# 4), Random123's known answers for Philox4x32-10 (counter words, key words
+# -> output words), the small shape of the gradient check
+DROPOUT_RATES = (0.1, 0.5)
+DROPOUT_RAGGED = (3, 1001)
+PHILOX_KAT = (
+    ((0, 0, 0, 0), (0, 0), (0x6627E8D5, 0xE169C58D, 0xBC57AC4C, 0x9B00DBD8)),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2,
+     (0x408F276D, 0x41C83B0E, 0xA20BC7C6, 0x6D5451FD)),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0),
+     (0xD16CFE09, 0x94FDCCEB, 0x5001E420, 0x24126EA1)))
+DROPOUT_GRAD_SHAPE = (8, 1000)
+# exported sampling (phase 12): where the state dict, the artifact (small
+# bucket) and logs go
+SAMPLING_ROOT = Path("build/chip_smoke_sampling")
+# the JSON line's "replaces" of the dropout kernel: the JAX package's
+# dropout, flax's, which XLA fuses (no TPU kernel)
+DROPOUT_REPLACES = ("fabind_tpu/models/layers.py:82 (flax nn.Dropout; no "
+                    "TPU kernel)")
 
 
 def check(ok: bool, what: str) -> None:
@@ -528,6 +570,88 @@ def check_kernels(served) -> dict:
     return max_err
 
 
+def dropout_shape(cfg_b) -> tuple:
+    """The largest tensor a FABind+ sampling pass of bucket cfg_b drops
+    out: the docking EGCL's edge-MLP hidden layer [B, N, K, s (2C + 1)]
+    over the complex's N = 2 + Nc + Np nodes and the ctx table's
+    K = 1 + max(min(ctx_k, Np - 1), bond_k) slots per node (ops/graph.py;
+    phase 12 checks it against the shapes a pass gives the kernel)."""
+    sh, m = cfg_b.shapes, cfg_b.model
+    k = 1 + max(min(sh.ctx_k, sh.max_pocket - 1), sh.bond_k)
+    return (BATCH, 2 + sh.max_ligand + sh.max_pocket, k,
+            m.mlp_hidden_scale * (2 * m.hidden_size + 1))
+
+
+def dropout_inputs(shape, dtype, seed=0):
+    """x uniform in [-2, 2) on the card, with a seed and a round tensor."""
+    g = torch.Generator().manual_seed(seed)
+    x = (torch.rand(shape, generator=g) * 4 - 2).to(dtype).cuda()
+    return (x, torch.tensor(-(2**62) + seed, device="cuda"),
+            torch.tensor(5, device="cuda"))
+
+
+def check_dropout(sampling_buckets) -> dict:
+    """Phase 2: the dropout kernel against its plain version, bit for bit
+    (mask and values) on the card, at the largest dropout shape of each
+    served bucket (`sampling_buckets` maps a bucket label to its FABind+
+    config) and a ragged one, in fp32 and bf16, at rates 0.1 and 0.5; the
+    plain version on the CPU on a copy of the input draws the same; its
+    Philox gives Random123's answers; its gradient is grad x mask x scale.
+    Returns the max abs error (0.0: equal) by (dtype, bucket label)."""
+    rows = np.array([[*c, *k] for c, k, _ in PHILOX_KAT], np.uint32)
+    got = dropout.philox_on_device(rows)
+    check(np.array_equal(got, np.array([w for _, _, w in PHILOX_KAT],
+                                       np.uint32)),
+          f"dropout Philox4x32-10 known answers: {got}")
+    print("dropout kernel Philox4x32-10: Random123's 3 known-answer vectors")
+    max_err = {}
+    cases = [(label, dropout_shape(c)) for label, c in
+             sampling_buckets.items()] + [(None, DROPOUT_RAGGED)]
+    for label, shape in cases:
+        for dtype in DTYPES:
+            for rate in DROPOUT_RATES:
+                x, seed, rnd = dropout_inputs(shape, dtype)
+                got = dropout.dropout(x, seed, rnd, 7, 1, rate)
+                torch.cuda.synchronize()
+                want = dropout.dropout_reference(x, seed, rnd, 7, 1, rate)
+                check(torch.equal(got, want), f"dropout {shape} {dtype} "
+                      f"rate {rate}: kernel != plain version")
+                # x is never 0 (uniform in [-2, 2) has no exact 0 here)
+                keep = float((got != 0).float().mean())
+                sd = (rate * (1 - rate) / x.numel()) ** 0.5
+                check(abs(keep - (1 - rate)) < 5 * sd,
+                      f"dropout {shape} rate {rate}: kept {keep}, 5 sd "
+                      f"{5 * sd}")
+                host = None
+                if label is None or (dtype == torch.bfloat16 and rate == 0.1):
+                    host = dropout.dropout(x.cpu(), seed.cpu(), rnd.cpu(), 7,
+                                           1, rate)
+                    check(torch.equal(host, got.cpu()),
+                          f"dropout {shape} {dtype} rate {rate}: the CPU's "
+                          f"plain version draws another mask")
+                print(f"dropout {list(shape)} {str(dtype)[6:]} rate {rate}: "
+                      f"kernel == plain on the card bit for bit"
+                      f"{' and on the CPU' if host is not None else ''}, "
+                      f"kept {keep:.4f}")
+                if label is not None:
+                    max_err[(dtype, label)] = 0.0
+                del x, got, want, host
+    for dtype in DTYPES:
+        x, seed, rnd = dropout_inputs(DROPOUT_GRAD_SHAPE, dtype, seed=1)
+        x.requires_grad_()
+        g = torch.randn(DROPOUT_GRAD_SHAPE, device="cuda").to(dtype)
+        y = dropout.dropout(x, seed, rnd, 3, 0, 0.1)
+        (gx,) = torch.autograd.grad(y, x, g)
+        keep = dropout.dropout(torch.ones_like(x), seed, rnd, 3, 0, 0.1) != 0
+        s = torch.tensor(dropout.scale(0.1), device="cuda")
+        # the product in fp32, rounded once (bf16 x a 0-d fp32 tensor
+        # would round the scale to bf16 first)
+        check(torch.equal(gx, (g.float() * keep * s).to(dtype)),
+              f"dropout backward {dtype}: grad x mask x scale")
+    print("dropout backward: grad x mask x scale bit for bit (fp32, bf16)")
+    return max_err
+
+
 def make_requests(n: int, seed: int):
     """Synthetic raw requests: globular proteins of 200-500 residues (CA
     positions uniform in a ball of the size a real protein of that length
@@ -688,13 +812,14 @@ def time_engine(engine, batches, raws, what, card_line):
     return lat, syncs
 
 
-def post_dock_raw(base: str, raws):
-    """POST /dock_raw with the npz of `raws`: the daemon's JSON poses."""
+def post_dock_raw(base: str, raws, path: str = "/dock_raw"):
+    """POST `path` (/dock_raw or /dock_best_of?...) with the npz of `raws`:
+    the daemon's JSON poses."""
     buf = io.BytesIO()
     np.savez(buf, **{f"r{i}_{k}": v for i, raw in enumerate(raws)
                      for k, v in raw.items()})
     req = urllib.request.Request(
-        base + "/dock_raw", data=buf.getvalue(), method="POST",
+        base + path, data=buf.getvalue(), method="POST",
         headers={"Content-Type": "application/octet-stream"})
     with urllib.request.urlopen(req, timeout=300) as r:
         return json.loads(r.read())
@@ -879,14 +1004,14 @@ def time_sampling_pass(engine, batch, cfg_b, card_line):
     m, shapes = engine.cfg.model, cfg_b.shapes
     xyz = batch.prot_xyz.float().cpu().numpy()
     mask = batch.prot_mask.cpu().numpy()
+    pocket_fn, dock_fn = live_halves(engine.model, cfg_b)
     pocket_ms, dock_ms, dbscan_ms, n_clusters = [], [], [], []
     for s in range(SAMPLES):
-        g = pass_generator(SAMPLE_SEED, 0, s, "cuda")
+        seed = pass_seed(SAMPLE_SEED, 0, s)
         with torch.inference_mode():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with dropout_rng(g):
-                pocket = engine.model._pocket_pred(batch, shapes)
+            pocket, center = pocket_fn(batch, seed)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             probs = 1.0 / (1.0 + np.exp(-pocket[2].float().cpu().numpy()))
@@ -896,9 +1021,7 @@ def time_sampling_pass(engine, batch, cfg_b, card_line):
             t3 = time.perf_counter()
             torch.cuda.synchronize()
             t4 = time.perf_counter()
-            with dropout_rng(g):
-                engine.model.inference_diag(batch, shapes=shapes,
-                                            pocket=pocket)
+            dock_fn(batch, pocket, center, seed)
             torch.cuda.synchronize()
             t5 = time.perf_counter()
         pocket_ms.append((t1 - t0) * 1e3)
@@ -1040,6 +1163,7 @@ class TrainProbe:
             probe.rounds = []
             torch.cuda.synchronize()
             before = edge_gate.KERNEL.launches
+            before_drop = dropout.KERNEL.launches
             t0 = time.perf_counter()
             m = probe.orig[0](tr, batch, bucket_cfg, **kw)
             sec = time.perf_counter() - t0
@@ -1051,6 +1175,7 @@ class TrainProbe:
                 iso=(None if batch.iso_mask is None
                      else batch.iso_mask.sum(-1).tolist()),
                 launches=edge_gate.KERNEL.launches - before,
+                dropout=dropout.KERNEL.launches - before_drop,
                 expected=expected,
                 recycles=sum(1 for _, _, n in probe.rounds
                              if n == mcfg.n_iter)))
@@ -1131,7 +1256,8 @@ def report_run(probe, out, what, card_line, serve_ms=None):
         print(f"time train step {what} bucket {label} ({len(ms)} steps of "
               f"{BATCH}): median {statistics.median(ms):.2f} ms, range "
               f"{min(ms):.2f}-{max(ms):.2f} ms, docking recycles "
-              f"{[r['recycles'] for r in rs]}{vs} [{card_line}]")
+              f"{[r['recycles'] for r in rs]}, dropout launches "
+              f"{[r['dropout'] for r in rs]}{vs} [{card_line}]")
     for r in epoch_records(out):
         print(f"time train epoch {what} {int(r['epoch'])}: {r['samples']} "
               f"samples in {r['seconds']:.3f} s, {r['samples_per_s']:.2f} "
@@ -2734,6 +2860,316 @@ def store_phase(raws, buckets, card_line):
             {torch.float32: evals})
 
 
+def dropout_calls_per_round(gnn, loop_body: bool = False) -> int:
+    """Dropout launches of one recycle round of a FABind+ EGNN stack, from
+    its site list: every Dropout with a rate, times its calls per round
+    (the edge MLP and the EGCL's coord MLP once per edge group, the
+    InterAttention's coord MLP once per attention direction, every other
+    site once; FABind+'s EGCL applies no dropout of its own). A traced
+    while loop's body (`loop_body`) leaves out the sites whose output the
+    loop discards: the output EGCL's node update and the output dropout
+    feed only h, and a round without gradient keeps x."""
+    n = 0
+    for name, mod in gnn.named_modules():
+        if not isinstance(mod, layers.Dropout) or mod.rate <= 0:
+            continue
+        layer, _, rest = name.partition(".")
+        if loop_body and (layer == "dropout_out" or (
+                layer == "out_layer" and rest.startswith("node_mlp."))):
+            continue
+        if rest.startswith("edge_mlp."):
+            n += 3
+        elif rest.startswith("coord_mlp."):
+            n += 2 if layer.startswith("att_") else 3
+        elif rest != "dropout" or layer.startswith("att_"):
+            n += 1
+    return n
+
+
+def pass_dropout_launches(model, pocket_rounds: int, dock_rounds: int,
+                          while_loop: bool = False):
+    """(pocket half, dock half) dropout launches of one sampling pass that
+    runs the given recycle rounds: each loop's calls per round times its
+    rounds (with `while_loop`, the rounds without gradient run a traced
+    loop body), and each head's sites once."""
+    def heads(names):
+        return sum(1 for n in names if getattr(model, n, None) is not None
+                   for _, d in getattr(model, n).named_modules()
+                   if isinstance(d, layers.Dropout) and d.rate > 0)
+
+    def loop(gnn, rounds):
+        return (dropout_calls_per_round(gnn)
+                + dropout_calls_per_round(gnn, while_loop) * (rounds - 1))
+
+    return (loop(model.pocket_pred_model.gnn, pocket_rounds)
+            + heads(("protein_to_pocket", "pocket_radius_head")),
+            loop(model.complex_model.gnn, dock_rounds)
+            + heads(("distmap_mlp", "ranking_mlp_pre", "ranking_score_mlp")))
+
+
+def start_sampling_export(buckets) -> subprocess.Popen:
+    """Phase 12's export, started before phase 7 so that it runs beside
+    phases 7-11: phase 6's seeded fabind_plus_sampling weights through
+    cli.export --sampling (bf16, stochastic pocket mode, the small bucket,
+    on the card) in a process of its own."""
+    shutil.rmtree(SAMPLING_ROOT, ignore_errors=True)
+    SAMPLING_ROOT.mkdir(parents=True)
+    sd = write_seeded_state_dict("fabind_plus_sampling",
+                                 SAMPLING_ROOT / "fabind_plus_sampling.pt")
+    return start_process(
+        "fabind_tpu_torch.cli.export",
+        export_args("fabind_plus_sampling", sd, SAMPLING_ROOT / "artifact",
+                    "cuda", buckets[0]) + ["--sampling"],
+        SAMPLING_ROOT / "export.log")
+
+
+def stop_processes(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.terminate()
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+
+def tensor_halves(model, cfg_b):
+    """The live model's stochastic sampling halves with the seed and the
+    recycle counts as tensors on the card, as the exported programs take
+    them: the loops without gradient run as a while loop."""
+    m, shapes = cfg_b.model, cfg_b.shapes
+
+    def keys(seed, batch):
+        return layers.upload_int64([layers.signed64(seed),
+                                    *recycle_counts(m, seed)],
+                                   batch.prot_xyz.device).unbind()
+
+    def pocket_fn(batch, seed):
+        s, pc, _ = keys(seed, batch)
+        return stochastic_pocket(model, batch, shapes, s, pc)
+
+    def dock_fn(batch, pocket, center, seed):
+        s, _, dc = keys(seed, batch)
+        return stochastic_dock(model, batch, shapes, pocket, center, s, dc)
+
+    return pocket_fn, dock_fn
+
+
+def time_halves(halves, batch, label, what, card_line):
+    """Host-clock ms of the pocket half and the dock half of SAMPLES
+    stochastic passes (seeds of batch 0), each ending in synchronize, after
+    one untimed pass. Returns the two medians."""
+    pocket_fn, dock_fn = halves
+    seeds = [pass_seed(SAMPLE_SEED, 0, s) for s in range(SAMPLES)]
+    pocket_ms, dock_ms = [], []
+    with torch.inference_mode():
+        dock_fn(batch, *pocket_fn(batch, seeds[0]), seeds[0])
+        for seed in seeds:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pocket, center = pocket_fn(batch, seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            dock_fn(batch, pocket, center, seed)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            pocket_ms.append((t1 - t0) * 1e3)
+            dock_ms.append((t2 - t1) * 1e3)
+    med = statistics.median(pocket_ms), statistics.median(dock_ms)
+    print(f"time sampling halves {what}, batch of {BATCH} bucket {label} "
+          f"({SAMPLES} passes): pocket half median {med[0]:.2f} ms, dock "
+          f"half median {med[1]:.2f} ms (of "
+          f"{[round(x, 1) for x in dock_ms]}) [{card_line}]")
+    return med
+
+
+def time_dropout(sampling_buckets, card_line) -> dict:
+    """The dropout kernel at the largest dropout shape of each bucket, in
+    each dtype (rate 0.1): kernel, plain version and yardstick ms (the
+    yardstick is the port's former dropout: torch.rand with a generator,
+    then torch.where) beside the bound, 2 x the bytes of x over HBM
+    bandwidth. Returns {(dtype, label): (ms, plain, bound, yardstick)}."""
+    out = {}
+    for label, c in sampling_buckets.items():
+        shape = dropout_shape(c)
+        for dtype in DTYPES:
+            x, seed, rnd = dropout_inputs(shape, dtype)
+            g = torch.Generator("cuda").manual_seed(0)
+            k_ms = cuda_time_ms(lambda: dropout.dropout(x, seed, rnd, 7, 1,
+                                                        0.1))
+            p_ms = cuda_time_ms(lambda: dropout.dropout_reference(
+                x, seed, rnd, 7, 1, 0.1), iters=5, warmup=1)
+            y_ms = cuda_time_ms(lambda: torch.where(
+                torch.rand(x.shape, generator=g, device=x.device) >= 0.1,
+                x / 0.9, 0.0))
+            b_ms = 2 * x.numel() * x.element_size() / PEAK_BYTES_S * 1e3
+            out[(dtype, label)] = (k_ms, p_ms, b_ms, y_ms)
+            print(f"time dropout {list(shape)} {str(dtype)[6:]} (bucket "
+                  f"{label}): kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms, torch.rand + torch.where "
+                  f"{y_ms:.4f} ms [{card_line}]")
+            del x
+    return out
+
+
+def sampling_phase(raws, buckets, proc, card_line):
+    """Phase 12: the exported best-of-N sampling programs of phase 6's
+    weights (small bucket, bf16, stochastic mode; exported by
+    `start_sampling_export` in a process of its own) served by
+    DockingEngine.from_exported, against the live engine. Returns the
+    dropout and gate launches of its main path (the exported dock_best_of)
+    and of the live one, each {dtype: {bucket: launches}}."""
+    t_phase = time.perf_counter()
+    small = buckets[0]
+    label = bucket_label(small)
+    cfg = preset("fabind_plus_sampling", **SMOKE_SHAPES)
+    m = cfg.model
+    art = SAMPLING_ROOT / "artifact"
+    daemon_log = SAMPLING_ROOT / "daemon.log"
+    daemon = None
+    try:
+        finish_export(proc, SAMPLING_ROOT / "export.log",
+                      "fabind_plus_sampling bf16 --sampling (cuda, own "
+                      "process)", card_line)
+        with open(art / "manifest.json") as f:
+            man = json.load(f)
+        check(man["sampling"] and man["sampling_pocket_mode"] == "stochastic",
+              "sampling manifest")
+        size = sum(os.path.getsize(art / e[k]) for e in man["buckets"]
+                   for k in ("file", "pocket_file", "sample_file"))
+        print(f"export sampling artifact: {man['buckets'][0]['seconds']:.1f} "
+              f"s for 3 programs, {size} bytes [{card_line}]")
+        port = free_port()
+        daemon = start_process(
+            "fabind_tpu_torch.cli.serve",
+            ["--exported", str(art), "--port", str(port), "--device", "cuda"],
+            daemon_log)
+        engine = load_exported(art, "fabind_plus_sampling bf16", card_line)
+        live = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+        rs = route(live, raws)[label]
+        check(len(rs) == BATCH, f"{len(rs)} requests in bucket {label}")
+        engine.warmup()
+        live.warmup()
+
+        # the main path: the exported engine's dock_best_of
+        dropout.KERNEL.launches = 0
+        edge_gate.KERNEL.launches = 0
+        poses = engine.dock_best_of(rs, sample_size=SAMPLES,
+                                    seed=SAMPLE_SEED)
+        drop_launches = dropout.KERNEL.launches
+        gate_launches = edge_gate.KERNEL.launches
+        check_poses(poses, rs, "exported best-of-N")
+        check(gate_launches == 0,
+              f"exported sampling launched the gate {gate_launches} times")
+        seeds = [pass_seed(SAMPLE_SEED, 0, s) for s in range(SAMPLES)]
+        drawn = [recycle_counts(m, sd) for sd in seeds]
+        per_pass = [pass_dropout_launches(live.model, *c, while_loop=True)
+                    for c in drawn]
+        want = sum(sum(p) for p in per_pass)
+        print(f"exported best-of-{SAMPLES} of {len(rs)} requests: dropout "
+              f"launches {drop_launches} (predicted from the site list "
+              f"{want}: per pass (pocket, dock) {per_pass[0]}), gate "
+              f"launches {gate_launches}; drawn recycle counts (pocket, "
+              f"dock) {drawn}")
+        check(drop_launches == want, f"exported sampling: {drop_launches} "
+              f"dropout launches, the site list predicts {want}")
+
+        # the live engine: the same poses bit for bit, the drawn rounds
+        dropout.KERNEL.launches = 0
+        live_poses = live.dock_best_of(rs, sample_size=SAMPLES,
+                                       seed=SAMPLE_SEED)
+        live_launches = dropout.KERNEL.launches
+        want_live = sum(sum(pass_dropout_launches(live.model, *c))
+                        for c in drawn)
+        check(live_launches == want_live, f"live sampling: {live_launches} "
+              f"dropout launches, the site list predicts {want_live}")
+        d = pose_dist(poses, live_poses)
+        check(d.max() == 0.0 and all(p.confidence == q.confidence
+                                     for p, q in zip(poses, live_poses)),
+              f"exported best-of-N vs live: max distance {d.max()}")
+        other = engine.dock_best_of(rs, sample_size=SAMPLES,
+                                    seed=SAMPLE_SEED + 1)
+        d_other = pose_dist(other, poses)
+        check(d_other.max() > 0.0, "exported best-of-N another seed")
+        print(f"exported best-of-{SAMPLES} equals the live engine's bit for "
+              f"bit (poses and confidences; live dropout launches "
+              f"{live_launches}, predicted {want_live}); another seed "
+              f"per-atom distance mean {d_other.mean():.3f} A")
+
+        # the largest tensor a pass drops out is the one phase 2 checked
+        shapes_seen = []
+        real = layers.dropout
+        layers.dropout = (lambda x, *a: shapes_seen.append(tuple(x.shape))
+                          or real(x, *a))
+        try:
+            (_, cfg_b, batch, _), = list(live.batches(rs, [None] * len(rs)))
+            with torch.inference_mode():
+                pocket_fn, dock_fn = live_halves(live.model, cfg_b)
+                dock_fn(batch, *pocket_fn(batch, seeds[0]), seeds[0])
+        finally:
+            layers.dropout = real
+        big = max(shapes_seen, key=lambda t: int(np.prod(t)))
+        check(big == dropout_shape(cfg_b),
+              f"largest dropout shape {big} vs {dropout_shape(cfg_b)}")
+
+        # /dock_best_of through cli.serve --exported
+        base_url = f"http://127.0.0.1:{port}"
+        health = wait_daemon(base_url, daemon, daemon_log)
+        got = post_dock_raw(base_url, rs, f"/dock_best_of?sample_size="
+                            f"{SAMPLES}&seed={SAMPLE_SEED}")
+        check(len(got) == len(poses) and all(
+            g["error"] is None and np.array_equal(
+                np.asarray(g["coords"], np.float32), p.coords)
+            for g, p in zip(got, poses)),
+            "daemon /dock_best_of equals the exported engine")
+        print(f"cli.serve --exported (sampling artifact, own process): "
+              f"/health {health}; /dock_best_of {len(got)} poses equal "
+              f"the engine's")
+
+        # times: the halves live and exported, best-of-8 live and exported
+        (_, cfg_b, batch, _), = list(live.batches(rs, [None] * len(rs)))
+        time_halves(live_halves(live.model, cfg_b), batch, label,
+                    "live (int counts: the drawn rounds)", card_line)
+        time_halves(tensor_halves(live.model, cfg_b), batch, label,
+                    "live, tensor counts (while loop)", card_line)
+        (_, cfg_e, batch_e, _), = list(engine.batches(rs, [None] * len(rs)))
+        time_halves(engine._exported.sampling_halves(cfg_e), batch_e, label,
+                    "exported", card_line)
+        time_best_of(live, rs, SAMPLES, "live bf16 (phase 12)", card_line,
+                     calls=2)
+        time_best_of(engine, rs, SAMPLES, "exported bf16", card_line,
+                     calls=2)
+        del live, engine
+    finally:
+        stop_processes([daemon] if daemon is not None else [])
+    torch.cuda.empty_cache()
+    print(f"time phase 12 (exported sampling) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return ({torch.bfloat16: {label: drop_launches}},
+            {torch.bfloat16: {label: live_launches}},
+            {torch.bfloat16: {label: gate_launches}})
+
+
+def dropout_rows(times, max_err, paths) -> list:
+    """One JSON row per path ((name prefix, {dtype: {bucket: launches}}))
+    and (dtype, bucket) it ran in, with the kernel's times there."""
+    rows = []
+    for path, counts in paths:
+        for dtype, by_bucket in counts.items():
+            for label, n in by_bucket.items():
+                k_ms, p_ms, b_ms, y_ms = times[(dtype, label)]
+                rows.append({
+                    "name": f"dropout {path}{str(dtype)[6:]} bucket {label}",
+                    "route": "cuda",
+                    "source": "fabind_tpu_torch/csrc/dropout.cu",
+                    "replaces": DROPOUT_REPLACES, "launches": n,
+                    "max_abs_err": max_err[(dtype, label)], "ms": k_ms,
+                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": "bytes",
+                    "library_ms": y_ms})
+    return rows
+
+
 def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
@@ -2802,11 +3238,14 @@ def main(argv=None) -> int:
           f"python {sys.version.split()[0]}; {sms} SMs, max SM clock "
           f"{clock_hz / 1e6:.0f} MHz")
     t0 = time.perf_counter()
-    build_all([edge_gate.KERNEL])
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s")
-    for line in edge_gate.KERNEL.build_log.splitlines():
-        if any(k in line for k in ("entry function", "registers", "spill")):
-            print("ptxas:", line.strip())
+    build_all([edge_gate.KERNEL, dropout.KERNEL])
+    print(f"kernel build (edge_gate.cu, dropout.cu in parallel): "
+          f"{time.perf_counter() - t0:.2f} s")
+    for kernel in (edge_gate.KERNEL, dropout.KERNEL):
+        for line in kernel.build_log.splitlines():
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print("ptxas:", line.strip())
     print_sass_mufu(edge_gate.KERNEL.lib_path)
 
     # ---- 2. kernels against their plain versions, at every served shape
@@ -2815,6 +3254,10 @@ def main(argv=None) -> int:
     served = {bucket_label(s): served_pair_shapes(cfg.replace(shapes=s))
               for s in buckets}
     max_err = check_kernels(served)
+    sampling_buckets = {bucket_label(s): preset(
+        "fabind_plus_sampling", **SMOKE_SHAPES).replace(shapes=s)
+        for s in buckets}
+    drop_err = check_dropout(sampling_buckets)
 
     # ---- 3. the main path as deployed: bf16, two buckets
     raws = make_requests(N_REQUESTS, seed=REQUEST_SEED)
@@ -2909,27 +3352,37 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     best_of_phase(raws, buckets, card_line)
 
-    # ---- 7. training
-    torch.cuda.empty_cache()
-    train_launches = train_phase(raws, card_line, lat16, args.profile)
+    # ---- 12's exports start here, in processes of their own, beside 7-11
+    sampling_proc = start_sampling_export(buckets)
+    try:
+        # ---- 7. training
+        torch.cuda.empty_cache()
+        train_launches = train_phase(raws, card_line, lat16, args.profile)
 
-    # ---- 8. evaluation and confidence training, from phase 7's runs
-    torch.cuda.empty_cache()
-    eval_launches = eval_phase(raws, card_line)
+        # ---- 8. evaluation and confidence training, from phase 7's runs
+        torch.cuda.empty_cache()
+        eval_launches = eval_phase(raws, card_line)
 
-    # ---- 9. structure files: ESM2, dock_sdf, /dock_sdf and the CLIs
-    torch.cuda.empty_cache()
-    sdf_launches = sdf_phase(raws, buckets, card_line, args.profile)
+        # ---- 9. structure files: ESM2, dock_sdf, /dock_sdf and the CLIs
+        torch.cuda.empty_cache()
+        sdf_launches = sdf_phase(raws, buckets, card_line, args.profile)
 
-    # ---- 10. exported serving: cli.export, from_exported, the daemon
-    torch.cuda.empty_cache()
-    exported_launches = export_phase(raws, buckets, poses, plus_poses,
-                                     card_line)
+        # ---- 10. exported serving: cli.export, from_exported, the daemon
+        torch.cuda.empty_cache()
+        exported_launches = export_phase(raws, buckets, poses, plus_poses,
+                                         card_line)
 
-    # ---- 11. training and evaluation from the processed PDBbind store
-    torch.cuda.empty_cache()
-    store_train_launches, store_eval_launches = store_phase(raws, buckets,
-                                                            card_line)
+        # ---- 11. training and evaluation from the processed PDBbind store
+        torch.cuda.empty_cache()
+        store_train_launches, store_eval_launches = store_phase(
+            raws, buckets, card_line)
+
+        # ---- 12. exported best-of-N sampling
+        torch.cuda.empty_cache()
+        drop_exported, drop_live, gate_sampling = sampling_phase(
+            raws, buckets, sampling_proc, card_line)
+    finally:
+        stop_processes([sampling_proc])
 
     # ---- 4b. kernel times
     rows = time_kernel_rows(
@@ -2938,8 +3391,12 @@ def main(argv=None) -> int:
          ("evaluate ", eval_launches), ("dock_sdf ", sdf_launches),
          ("exported ", exported_launches),
          ("train store ", store_train_launches),
-         ("evaluate store ", store_eval_launches)],
+         ("evaluate store ", store_eval_launches),
+         ("exported sampling ", gate_sampling)],
         sms, clock_hz, card_line)
+    rows += dropout_rows(time_dropout(sampling_buckets, card_line), drop_err,
+                         [("exported sampling ", drop_exported),
+                          ("sampling ", drop_live)])
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

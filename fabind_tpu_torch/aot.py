@@ -1,5 +1,6 @@
 """Deployment artifacts: the served inference program of each shape bucket,
-traced by `torch.export` with the (optionally bf16-cast) weights baked in.
+traced by `torch.export` with the (optionally bf16-cast) weights baked in,
+and with `sampling=True` the two halves of a best-of-N sampling pass.
 
 Counterpart of fabind_tpu/aot.py. A serving process loads the artifact
 directory and runs the programs without building the model from its code or
@@ -10,12 +11,31 @@ Artifact directory layout:
                                     the programs' input order
     bucket_<L>_<P>_<R>.pt2          `torch.export.save` of one bucket's
                                     program (graph and weights)
+    pocket_<L>_<P>_<R>.pt2          with sampling: the pocket half
+    sample_<L>_<P>_<R>.pt2          with sampling: the stochastic dock half
 
 Each program's signature is a flat tuple of the batch's tensors in the order
-`manifest["inputs"]` records (BATCH_FIELDS): no registered dataclass pytree,
-whose registration is a property of the process that made the artifact, not
-of the artifact. It returns (lig_coords [B,Nc,3], confidence [B],
-pocket_overflow [B]), the live engine's `model.inference_diag`.
+`manifest["inputs"]` records (BATCH_FIELDS), then the program's own inputs:
+no registered dataclass pytree, whose registration is a property of the
+process that made the artifact, not of the artifact. The main program
+returns (lig_coords [B,Nc,3], confidence [B], pocket_overflow [B]), the live
+engine's `model.inference_diag`. The sampling halves depend on the
+manifest's `sampling_pocket_mode` (sample.py's functions, traced):
+
+  - "stochastic": pocket (batch, seed, count) -> (compound_out,
+    protein_out, cls_logits, radius_pred, center [B,3] f32); sample (batch,
+    the four pocket outputs, center [B,3] f32, seed, count) -> (coords,
+    confidence)
+  - "fixed": pocket (batch) -> the four pocket outputs, deterministic;
+    sample (batch, center [B,3] f32, seed, pocket_count, count) ->
+    (coords, confidence), a whole stochastic forward
+
+seed and the counts are int64 0-d tensors on the program's device: the
+dropout masks are a function of the seed (the registered operator
+`fabind_tpu_torch::dropout`, ops/dropout.py), and the recycle count, drawn
+on the host from the seed (sample.recycle_counts), runs the rounds as a
+while loop (models/att_model.py). So a program draws the live model's masks
+and gives its poses bit for bit.
 
 The edge gate is the registered operator `fabind_tpu_torch::edge_gate_pair`
 (ops/edge_gate.py), so a program holds one call of it per launch and
@@ -33,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -43,8 +64,12 @@ from fabind_tpu_torch.config import (FABindConfig, ModelConfig, ShapeConfig,
                                      TrainConfig)
 from fabind_tpu_torch.data.buckets import sort_bucket_cfgs
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays
-# registers the gate's operator, which the programs call by name
-from fabind_tpu_torch.ops import edge_gate  # noqa: F401
+from fabind_tpu_torch.models.layers import signed64, upload_int64
+# registers the gate's and the dropout's operators, which the programs
+# call by name
+from fabind_tpu_torch.ops import dropout, edge_gate  # noqa: F401
+from fabind_tpu_torch.sample import (recycle_counts, stochastic_dock,
+                                     stochastic_inference, stochastic_pocket)
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
                                               cast_module_bf16)
 
@@ -55,12 +80,15 @@ _OUTPUTS = ("lig_coords", "confidence", "overflow")
 # isomorphism fields, which inference never reads, absent
 BATCH_FIELDS = tuple(f.name for f in dataclasses.fields(FABindBatch)
                      if f.name not in ("isomorphisms", "iso_mask"))
-SAMPLING_TODO = ("the port exports no sampling programs yet (ROADMAP queue 1: "
-                 "exported sampling programs)")
+_POCKET_OUTPUTS = ("compound_out", "protein_out", "cls_logits",
+                   "radius_pred")
+NO_SAMPLING = ("this artifact was exported without the sampling programs — "
+               "re-export with export_inference(..., sampling=True) / "
+               "cli.export --sampling to serve dock_best_of")
 
 
-def _bucket_name(shapes: ShapeConfig) -> str:
-    return (f"bucket_{shapes.max_ligand}_{shapes.max_pocket}_"
+def _bucket_name(shapes: ShapeConfig, kind: str = "bucket") -> str:
+    return (f"{kind}_{shapes.max_ligand}_{shapes.max_pocket}_"
             f"{shapes.max_protein}.pt2")
 
 
@@ -94,6 +122,92 @@ class _BucketProgram(nn.Module):
         return self.model.inference_diag(batch, shapes=self.shapes)
 
 
+class _StochasticPocket(_BucketProgram):
+    def forward(self, *args):
+        *leaves, seed, count = args
+        batch = FABindBatch(**dict(zip(BATCH_FIELDS, leaves)))
+        pocket, center = stochastic_pocket(self.model, batch, self.shapes,
+                                           seed, count)
+        return (*pocket, center)
+
+
+class _StochasticDock(_BucketProgram):
+    def forward(self, *args):
+        *leaves, co, po, cl, ra, center, seed, count = args
+        batch = FABindBatch(**dict(zip(BATCH_FIELDS, leaves)))
+        return stochastic_dock(self.model, batch, self.shapes,
+                               (co, po, cl, ra), center, seed, count)
+
+
+class _FixedPocket(_BucketProgram):
+    def forward(self, *leaves):
+        batch = FABindBatch(**dict(zip(BATCH_FIELDS, leaves)))
+        return self.model._pocket_pred(batch, self.shapes)
+
+
+class _FixedSample(_BucketProgram):
+    def forward(self, *args):
+        *leaves, center, seed, pocket_count, count = args
+        batch = FABindBatch(**dict(zip(BATCH_FIELDS, leaves)))
+        return stochastic_inference(self.model, batch, self.shapes, center,
+                                    seed, pocket_count, count)
+
+
+def _export(program: nn.Module, args: tuple, out_dir: str, name: str
+            ) -> None:
+    """Trace one program on `args` and save it as `name`."""
+    with torch.no_grad():
+        ep = torch.export.export(program, args, strict=False)
+    torch.export.save(ep, os.path.join(out_dir, name))
+
+
+def _specs(names: Sequence[str], tensors: Sequence[torch.Tensor]
+           ) -> List[Dict]:
+    """Manifest input specs of a program's inputs after the batch."""
+    return [{"name": n, "shape": list(t.shape),
+             "dtype": str(t.dtype)[len("torch."):]}
+            for n, t in zip(names, tensors)]
+
+
+def _export_sampling(model: nn.Module, cfg_b: FABindConfig, example: tuple,
+                     out_dir: str, device) -> Dict:
+    """The two sampling halves of one bucket (module docstring), traced on
+    the seed 0 and its counts; returns the manifest entry's fields."""
+    shapes = cfg_b.shapes
+    mode = cfg_b.model.sampling_pocket_mode
+
+    def scalar(v):
+        return torch.tensor(v, dtype=torch.int64, device=device)
+
+    seed = scalar(0)
+    pc, dc = (scalar(c) for c in recycle_counts(cfg_b.model, 0))
+    center = torch.zeros((example[0].shape[0], 3), dtype=torch.float32,
+                         device=device)
+    if mode == "stochastic":
+        pocket_prog = _StochasticPocket(model, shapes)
+        p_names, p_extra = ("seed", "count"), (seed, pc)
+        with torch.no_grad():
+            pocket = pocket_prog(*example, *p_extra)[:4]
+        sample_prog = _StochasticDock(model, shapes)
+        s_names = (*_POCKET_OUTPUTS, "center", "seed", "count")
+        s_extra = (*pocket, center, seed, dc)
+    elif mode == "fixed":
+        pocket_prog = _FixedPocket(model, shapes)
+        p_names, p_extra = (), ()
+        sample_prog = _FixedSample(model, shapes)
+        s_names = ("center", "seed", "pocket_count", "count")
+        s_extra = (center, seed, pc, dc)
+    else:
+        raise ValueError(f"sampling_pocket_mode {mode!r}")
+    pname = _bucket_name(shapes, "pocket")
+    sname = _bucket_name(shapes, "sample")
+    _export(pocket_prog, (*example, *p_extra), out_dir, pname)
+    _export(sample_prog, (*example, *s_extra), out_dir, sname)
+    return {"pocket_file": pname, "sample_file": sname,
+            "pocket_inputs": _specs(p_names, p_extra),
+            "sample_inputs": _specs(s_names, s_extra)}
+
+
 def _example_batch(cfg_b: FABindConfig, batch_size: int, bf16: bool,
                    device) -> FABindBatch:
     arrays = dummy_arrays(cfg_b.shapes, batch_size=batch_size,
@@ -116,11 +230,16 @@ def export_inference(cfg: FABindConfig, state_dict: Dict[str, torch.Tensor],
     deployment cast happens here, so the artifact holds the exact serving
     weights. The trace runs on `device` ("cuda" by default; raises without
     CUDA). `post_optim_steps` is recorded, not traced (module docstring).
+    `sampling` also exports each bucket's two halves of a best-of-N pass
+    in the config's `sampling_pocket_mode`; it needs the confidence head
+    (preset "fabind_plus_sampling").
     """
     from fabind_tpu_torch.models.fabind import make_model
 
     if sampling:
-        raise NotImplementedError(SAMPLING_TODO)
+        assert cfg.model.confidence_training, (
+            "sampling export needs the confidence head — use a "
+            "fabind_plus_sampling config")
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("export_inference: CUDA is not available; pass "
@@ -138,15 +257,15 @@ def export_inference(cfg: FABindConfig, state_dict: Dict[str, torch.Tensor],
         example = batch_leaves(_example_batch(cfg_b, batch_size, bf16,
                                               device))
         t0 = time.perf_counter()
-        with torch.no_grad():
-            ep = torch.export.export(_BucketProgram(model, cfg_b.shapes),
-                                     example, strict=False)
         name = _bucket_name(cfg_b.shapes)
-        torch.export.save(ep, os.path.join(out_dir, name))
-        entries.append({"file": name,
-                        "shapes": dataclasses.asdict(cfg_b.shapes),
-                        "inputs": [list(t.shape) for t in example],
-                        "seconds": time.perf_counter() - t0})
+        _export(_BucketProgram(model, cfg_b.shapes), example, out_dir, name)
+        entry = {"file": name, "shapes": dataclasses.asdict(cfg_b.shapes),
+                 "inputs": [list(t.shape) for t in example]}
+        if sampling:
+            entry.update(_export_sampling(model, cfg_b, example, out_dir,
+                                          device))
+        entry["seconds"] = time.perf_counter() - t0
+        entries.append(entry)
         inputs = [{"name": n, "dtype": str(t.dtype)[len("torch."):]}
                   for n, t in zip(BATCH_FIELDS, example)]
 
@@ -159,8 +278,9 @@ def export_inference(cfg: FABindConfig, state_dict: Dict[str, torch.Tensor],
         "bf16": bf16,
         "flexible": False,
         "post_optim_steps": post_optim_steps,
-        "sampling": False,
-        "sampling_pocket_mode": None,
+        "sampling": bool(sampling),
+        "sampling_pocket_mode": (cfg.model.sampling_pocket_mode if sampling
+                                 else None),
         "export_device": device.type,
         "inputs": inputs,
         "outputs": list(_OUTPUTS),
@@ -193,33 +313,50 @@ class ExportedInference:
     """A loaded artifact directory on `device` (default cuda; the programs
     are moved there when they were exported elsewhere): one callable per
     bucket config with the engine's batch -> (coords, confidence,
-    pocket_overflow) contract."""
+    pocket_overflow) contract, and with sampling programs each bucket's
+    `sampling_halves`. One program call runs at a time: a program's module
+    is not documented as safe to call from several threads."""
 
     def __init__(self, path: str, device=None):
         self.manifest = m = read_manifest(path)
+        self._lock = threading.Lock()
         self.device = torch.device("cuda" if device is None else device)
         self.cfg = config_from_dict(m["config"])
         self.batch_size = int(m["batch_size"])
         self.bf16 = bool(m["bf16"])
         self.post_optim_steps = int(m["post_optim_steps"])
+        self.sampling = bool(m.get("sampling", False))
+        self.sampling_pocket_mode = m.get("sampling_pocket_mode")
         self.bucket_cfgs = [
             self.cfg.replace(shapes=ShapeConfig(**e["shapes"]))
             for e in m["buckets"]]
-        self._specs = {}
-        self._programs = {}
+        # bucket -> its main program; (bucket, kind) -> a sampling half;
+        # either -> its input specs
+        self._programs, self._halves, self._specs = {}, {}, {}
         for cfg_b, e in zip(self.bucket_cfgs, m["buckets"]):
-            ep = torch.export.load(os.path.join(path, e["file"]))
-            if m["export_device"] != self.device.type:
-                from torch.export.passes import move_to_device_pass
-                ep = move_to_device_pass(ep, self.device)
-            self._programs[id(cfg_b)] = ep.module()
-            self._specs[id(cfg_b)] = [
+            batch_specs = [
                 (i["name"], tuple(shape), getattr(torch, i["dtype"]))
                 for i, shape in zip(m["inputs"], e["inputs"])]
+            self._programs[id(cfg_b)] = self._load(path, e["file"],
+                                                   m["export_device"])
+            self._specs[id(cfg_b)] = batch_specs
+            for kind in ("pocket", "sample") if self.sampling else ():
+                self._halves[id(cfg_b), kind] = self._load(
+                    path, e[f"{kind}_file"], m["export_device"])
+                self._specs[id(cfg_b), kind] = batch_specs + [
+                    (i["name"], tuple(i["shape"]), getattr(torch, i["dtype"]))
+                    for i in e[f"{kind}_inputs"]]
 
-    def _check(self, cfg_b: FABindConfig, leaves) -> None:
-        """The clear error for a batch that does not fit the program."""
-        for (name, shape, dtype), t in zip(self._specs[id(cfg_b)], leaves):
+    def _load(self, path: str, name: str, export_device: str):
+        ep = torch.export.load(os.path.join(path, name))
+        if export_device != self.device.type:
+            from torch.export.passes import move_to_device_pass
+            ep = move_to_device_pass(ep, self.device)
+        return ep.module()
+
+    def _check(self, cfg_b: FABindConfig, specs, args) -> None:
+        """The clear error for inputs that do not fit the program."""
+        for (name, shape, dtype), t in zip(specs, args):
             if (t is None or tuple(t.shape) != shape or t.dtype != dtype
                     or t.device.type != self.device.type):
                 got = (None if t is None
@@ -233,14 +370,63 @@ class ExportedInference:
                     f"re-export or fix the caller: {name} is {got}, the "
                     f"program takes {(shape, dtype, self.device.type)}")
 
+    def _runner(self, cfg_b: FABindConfig, kind: Optional[str] = None):
+        """Call bucket cfg_b's main program (or its sampling half `kind`)
+        on (batch, *extra inputs), after checking them."""
+        if kind is None:
+            program, specs = self._programs[id(cfg_b)], self._specs[id(cfg_b)]
+        else:
+            program = self._halves[id(cfg_b), kind]
+            specs = self._specs[id(cfg_b), kind]
+
+        def run(batch: FABindBatch, *extra):
+            args = (*batch_leaves(normalize_batch(batch, self.batch_size)),
+                    *extra)
+            self._check(cfg_b, specs, args)
+            with self._lock:
+                return program(*args)
+
+        return run
+
     def fn(self, cfg_b: FABindConfig):
         """The program of bucket cfg_b (identity-keyed, as the engine's
         bucket configs are): batch -> (coords, confidence, overflow)."""
-        program = self._programs[id(cfg_b)]
+        return self._runner(cfg_b)
 
-        def call(batch: FABindBatch):
-            leaves = batch_leaves(normalize_batch(batch, self.batch_size))
-            self._check(cfg_b, leaves)
-            return program(*leaves)
+    def sampling_halves(self, cfg_b: FABindConfig):
+        """(pocket_fn, dock_fn) of bucket cfg_b with sample.live_halves'
+        contract for the artifact's `sampling_pocket_mode`, for
+        sample.sample_poses(..., halves=...). Each call uploads the pass's
+        seed and recycle counts (drawn on the host from the seed,
+        sample.recycle_counts) as int64 tensors. Raises when the artifact
+        was exported without `sampling=True`."""
+        if not self.sampling:
+            raise ValueError(NO_SAMPLING)
+        pocket_prog = self._runner(cfg_b, "pocket")
+        sample_prog = self._runner(cfg_b, "sample")
+        m = self.cfg.model
 
-        return call
+        def keys(seed: int):
+            """(seed, pocket count, dock count) on the device."""
+            return upload_int64([signed64(seed), *recycle_counts(m, seed)],
+                           self.device).unbind()
+
+        if self.sampling_pocket_mode == "stochastic":
+            def pocket_fn(batch, seed):
+                s, pc, _ = keys(seed)
+                *pocket, center = pocket_prog(batch, s, pc)
+                return tuple(pocket), center
+
+            def dock_fn(batch, pocket, center, seed):
+                s, _, dc = keys(seed)
+                return tuple(sample_prog(batch, *pocket,
+                                         center.to(torch.float32), s, dc))
+        else:
+            def pocket_fn(batch):
+                return tuple(pocket_prog(batch))
+
+            def dock_fn(batch, center, seed):
+                return tuple(sample_prog(batch, center.to(torch.float32),
+                                         *keys(seed)))
+
+        return pocket_fn, dock_fn

@@ -3,12 +3,15 @@ shape bucket (fabind_tpu_torch.aot), traced on the card by default.
 
 Counterpart of fabind_tpu/cli/export.py; `--device` takes the place of its
 `--platforms` (an artifact exported on the CPU serves on the card too).
+`--sampling` adds each bucket's two best-of-N sampling halves (a preset
+with the confidence head: fabind_plus_sampling), so the artifact's engine
+serves dock_best_of.
 
 Usage:
   python -m fabind_tpu_torch.cli.export --preset fabind --ckpt best_model.bin \
       --output exported/ [--buckets 48:160:408,96:160:512,128:256:1024] \
       [--batch-size 8] [--no-bf16] [--device cuda|cpu] \
-      [--post-optim-steps N] [--set KEY=VALUE ...]
+      [--post-optim-steps N] [--sampling] [--set KEY=VALUE ...]
 
 --ckpt takes a released `.bin`/`.pt` checkpoint or a port checkpoint (a
 `save_params` file, a checkpoint directory or a `cli.train` run directory).
@@ -48,18 +51,17 @@ def main(argv=None):
                         "runs after each program (reference "
                         "fabind_inference.py:373)")
     p.add_argument("--sampling", action="store_true",
-                   help="also export the best-of-N sampling programs (not "
-                        "in the port yet: raises)")
+                   help="also export the best-of-N sampling programs "
+                        "(pocket half + stochastic dock half per bucket; "
+                        "needs the confidence head: fabind_plus_sampling)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE")
     args = p.parse_args(argv)
 
-    from fabind_tpu_torch.aot import SAMPLING_TODO, export_inference
+    from fabind_tpu_torch.aot import export_inference
     from fabind_tpu_torch.cli.common import load_model, resolve_device
     from fabind_tpu_torch.config import parse_overrides, preset
     from fabind_tpu_torch.data.buckets import resolve_buckets
 
-    if args.sampling:
-        raise NotImplementedError(SAMPLING_TODO)
     device = resolve_device(args.device, "cli.export")
     cfg = preset(args.preset, **parse_overrides(args.set))
     buckets = resolve_buckets(args.buckets, cfg)
@@ -69,9 +71,11 @@ def main(argv=None):
     manifest = export_inference(
         cfg, state_dict, args.output, buckets=buckets,
         batch_size=args.batch_size, bf16=not args.no_bf16,
-        post_optim_steps=args.post_optim_steps, device=device)
-    size = sum(os.path.getsize(os.path.join(args.output, e["file"]))
-               for e in manifest["buckets"])
+        post_optim_steps=args.post_optim_steps, device=device,
+        sampling=args.sampling)
+    size = sum(os.path.getsize(os.path.join(args.output, e[k]))
+               for e in manifest["buckets"]
+               for k in ("file", "pocket_file", "sample_file") if k in e)
     print(json.dumps({"artifacts": len(manifest["buckets"]), "bytes": size,
                       "seconds": round(time.perf_counter() - t0, 1),
                       "output": args.output}))

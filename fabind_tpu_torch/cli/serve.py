@@ -12,7 +12,7 @@ Usage:
 
   # or serve an artifact directory of cli.export: no model built, no
   # checkpoint read; preset, buckets, batch size and dtype come from its
-  # manifest
+  # manifest; /dock_best_of when it was exported with --sampling
   python -m fabind_tpu_torch.cli.serve --exported exported/ [--port 8400] \
       [--device cuda|cpu] [--warmup] [--esm-weights PATH] [--pdb-root DIR]
 

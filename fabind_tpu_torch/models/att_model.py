@@ -8,17 +8,35 @@ forward) with cfg.random_n_iter runs a count drawn uniformly from 1..n_iter,
 as the JAX package's non-deterministic forward does; its rounds without
 gradient keep dropout on. The explicit pair embedding is built once per
 forward from the entry node embeddings.
+
+The count is known on the host (`layers.recycle_count` of the pass's seed
+and the loop's site), and a forward given it as an int runs exactly
+count - 1 rounds without gradient in a Python loop. A traced program takes
+it as an int64 tensor instead and runs the rounds as one
+torch._higher_order_ops.while_loop, its body traced once: the work of the
+drawn count, with the predicate, a tensor on the device, read by the host
+each round. On the H100 the sampling pass is host-bound, so that sync
+costs little; running all n_iter - 1 rounds kept by torch.where instead
+(no sync, the deepest count's work every pass) halved best-of-8
+throughput there (PERF.md §6).
+
+Round i's dropout draws are keyed by i, the round with gradient by
+n_iter - 1, so the loop draws the masks of the Python loop and gives its
+result bit for bit.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.models.egnn import GraphInputs, MCAttEGNN
-from fabind_tpu_torch.models.layers import InteractionModule, active_host_rng
+from fabind_tpu_torch.models.layers import (InteractionModule,
+                                            StochasticKeys, active_stochastic,
+                                            enter_stochastic, recycle_count,
+                                            recycle_round)
 
 Tensor = torch.Tensor
 
@@ -36,6 +54,7 @@ class EfficientMCAttModel(nn.Module):
         self.cfg = cfg
         self.n_iter = n_iter
         self.ctx_k = ctx_k
+        self.site = 0           # the recycle count's draw (assign_sites)
         self.gnn = MCAttEGNN(cfg, embed_size, hidden_size, hidden_size,
                              n_layers)
         self.inter_layer = InteractionModule(
@@ -51,16 +70,28 @@ class EfficientMCAttModel(nn.Module):
         movable = gi.layout.movable(x.device)[None, :, None]
         return h_out, torch.where(movable, z, x), pair_out
 
+    def draw_count(self) -> int:
+        """The recycle count of this loop in the current forward: drawn
+        from the stochastic forward's seed with cfg.random_n_iter, else
+        n_iter."""
+        state = active_stochastic()
+        if state is None or not self.cfg.random_n_iter:
+            return self.n_iter
+        if state.seed is None:
+            raise ValueError("a traced stochastic forward takes its recycle "
+                             "counts as inputs: pass count=")
+        return recycle_count(state.seed, self.site, self.n_iter)
+
     def forward(self, x: Tensor, h: Tensor, gi: GraphInputs,
-                n_iter: Optional[int] = None, ctx_k: Optional[int] = None):
+                ctx_k: Optional[int] = None,
+                count: Union[int, Tensor, None] = None):
         """x: [B, N, 3] normalized complex coords; h: [B, N, embed_size].
-        ctx_k overrides the ctx graph's K (a shape bucket's). Returns
-        (x_out, h_out, pair_embed_out)."""
-        host_rng = active_host_rng()
-        if n_iter is None and self.cfg.random_n_iter and host_rng is not None:
-            n_iter = int(torch.randint(1, self.n_iter + 1, (),
-                                       generator=host_rng))
-        n_iter = self.n_iter if n_iter is None else n_iter
+        ctx_k overrides the ctx graph's K (a shape bucket's). `count` is the
+        recycle count (an int, or an int64 0-d tensor on the device in a
+        traced program; default `draw_count()`). Returns (x_out, h_out,
+        pair_embed_out)."""
+        if count is None:
+            count = self.draw_count()
         ctx_k = self.ctx_k if ctx_k is None else ctx_k
         layout = gi.layout
         p_mask_side, c_mask_side = gi.side_masks()
@@ -71,8 +102,55 @@ class EfficientMCAttModel(nn.Module):
 
         x = x.detach()
         with torch.no_grad():
-            for _ in range(n_iter - 1):
-                _, x, _ = self._step(h, x, gi, pair_embed, pair_mask, ctx_k)
-        h_out, x, pair_out = self._step(h, x.detach(), gi, pair_embed,
-                                        pair_mask, ctx_k)
+            if not isinstance(count, Tensor):
+                for i in range(count - 1):
+                    with recycle_round(i):
+                        x = self._step(h, x, gi, pair_embed, pair_mask,
+                                       ctx_k)[1]
+            elif self.n_iter > 1:
+                x = self._while_rounds(x, count, h, gi, pair_embed,
+                                       pair_mask, ctx_k)
+        with recycle_round(self.n_iter - 1):
+            h_out, x, pair_out = self._step(h, x.detach(), gi, pair_embed,
+                                            pair_mask, ctx_k)
         return x, h_out, pair_out
+
+    def _while_rounds(self, x: Tensor, count: Tensor, h: Tensor,
+                      gi: GraphInputs, pair_embed: Tensor, pair_mask: Tensor,
+                      ctx_k: int) -> Tensor:
+        """The rounds without gradient as one while_loop over (round, x).
+        The operator is called directly (the public `while_loop` compiles
+        its body with dynamo): every tensor the body reads, the stack's
+        weights included, is an explicit input, and the body keys its
+        dropout draws by its own round tensor."""
+        from torch._higher_order_ops.while_loop import while_loop_op
+        from torch.func import functional_call
+
+        state = active_stochastic()
+        names = [n for n, _ in self.gnn.named_parameters()]
+        seed = () if state is None else (state.seed_tensor(x.device),)
+        n_seed = len(seed)
+        extra = (count, h, pair_embed, pair_mask, *gi, *seed,
+                 *(p for _, p in self.gnn.named_parameters()))
+        cfg = self.cfg
+        n_gi = len(gi)
+
+        def cond(i, x, count, *rest):
+            return i < count - 1
+
+        def body(i, x, count, h, pair_embed, pair_mask, *rest):
+            g = GraphInputs(*rest[:n_gi])
+            seed, weights = rest[n_gi:n_gi + n_seed], rest[n_gi + n_seed:]
+            keys = (None if state is None
+                    else StochasticKeys(seed_tensor=seed[0], rnd=i))
+            with enter_stochastic(keys):
+                _, z, _ = functional_call(
+                    self.gnn, dict(zip(names, weights)),
+                    (h, x, g, pair_embed, pair_mask,
+                     cfg.normalize(cfg.intra_cutoff),
+                     cfg.normalize(cfg.inter_cutoff), ctx_k))
+            movable = g.layout.movable(x.device)[None, :, None]
+            return i + 1, torch.where(movable, z, x)
+
+        return while_loop_op(cond, body, (torch.zeros_like(count), x),
+                             extra)[1]

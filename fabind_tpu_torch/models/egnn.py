@@ -6,15 +6,21 @@ Counterpart of fabind_tpu/models/egnn.py:
   radial term; the two global tokens are aggregated in a dense side branch.
 - `InterAttention`: dense masked bipartite attention between ligand and
   pocket; its coordinate gate runs through the edge-gate kernel.
-- `MCAttEGNN`: the layer stack with the in-loop LAS projection. Each EGCL
-  and InterAttention draws its dropout masks from a generator of its own,
-  and with cfg.remat is recomputed in the backward (torch.utils.checkpoint),
-  as the JAX package's `nn.remat` layers are.
+- `MCAttEGNN`: the layer stack with the in-loop LAS projection. With
+  cfg.remat each EGCL and InterAttention is recomputed in the backward
+  (torch.utils.checkpoint), as the JAX package's `nn.remat` layers are; its
+  dropout masks are keyed, not drawn from generator state, so the
+  recomputation draws the forward's.
+
+A module called more than once per recycle round (the edge and coord MLPs
+of each EGCL edge group, the coord MLP of each attention direction) passes
+the call's index to its dropout draws.
 
 All coordinates here are normalized (divided by coordinate_scale).
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple
 
 import torch
@@ -24,8 +30,9 @@ from torch.utils.checkpoint import checkpoint
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.models.cross_att import CrossAttentionModule
-from fabind_tpu_torch.models.layers import (Dropout, MLPBlock, dropout_rng,
-                                            layer_seed)
+from fabind_tpu_torch.models.layers import (Dropout, MLPBlock,
+                                            active_stochastic,
+                                            enter_stochastic)
 from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, safe_sqrt
 
@@ -154,27 +161,29 @@ class EGCL(nn.Module):
                 + torch.where(m_p, r_p * r_p, 0.0).sum(1))
         div = _norm_div(r_sq, cfg)
 
-        def messages(src, radial, div_b, dst):
+        def messages(src, radial, div_b, dst, call):
             """Edge messages from the gathered source rows and the
-            destination node(s) `dst` (an index or a broadcast slice)."""
+            destination node(s) `dst` (an index or a broadcast slice);
+            `call` is the edge group's index in the dropout keys."""
             if ln_edges:
                 return self.edge_mlp.finish(self.edge_mlp.ln_l1_edges(
                     parts, parts.a[dst][..., None, :], parts.t[dst][..., None],
-                    parts.q[dst][..., None], src, radial / div_b))
+                    parts.q[dst][..., None], src, radial / div_b), call)
             m = self.edge_mlp.finish(
-                a[dst][..., None, :] + src + (radial / div_b)[..., None] * w_r)
-            return m if cfg.is_plus else self.dropout(m)
+                a[dst][..., None, :] + src + (radial / div_b)[..., None] * w_r,
+                call)
+            return m if cfg.is_plus else self.dropout(m, call)
 
         msg_n = messages(g_n[..., 3:], r_n, div[:, None, None],
-                         (slice(None), slice(None)))
+                         (slice(None), slice(None)), 0)
         msg_c = messages(g_c[..., 3:], r_c, div[:, None],
-                         (slice(None), layout.glb_c))
+                         (slice(None), layout.glb_c), 1)
         msg_p = messages(g_p[..., 3:], r_p, div[:, None],
-                         (slice(None), layout.glb_p))
+                         (slice(None), layout.glb_p), 2)
 
         # coord update: segment mean of diff * coord_mlp(m)
-        def coord_agg(msg, diff, mask):
-            w = self.coord_mlp.scalar_call(msg)[..., None]
+        def coord_agg(msg, diff, mask, call):
+            w = self.coord_mlp.scalar_call(msg, call)[..., None]
             t = diff * w * mask[..., None].to(diff.dtype)
             cnt = mask.sum(-1, keepdim=True).clamp(min=1)
             return t.sum(-2) / cnt.to(diff.dtype)
@@ -182,10 +191,10 @@ class EGCL(nn.Module):
         def node_sum(msg, mask):
             return (msg * mask[..., None].to(msg.dtype)).sum(-2)
 
-        agg_n = coord_agg(msg_n, diff_n, m_n)
-        agg_x = layout.assemble(coord_agg(msg_c, diff_c, m_c),
+        agg_n = coord_agg(msg_n, diff_n, m_n, 0)
+        agg_x = layout.assemble(coord_agg(msg_c, diff_c, m_c, 1),
                                 agg_n[:, layout.lig_slice],
-                                coord_agg(msg_p, diff_p, m_p),
+                                coord_agg(msg_p, diff_p, m_p, 2),
                                 agg_n[:, layout.pkt_slice])
         x_out = x + agg_x.clamp(-self.coord_max, self.coord_max)
 
@@ -196,7 +205,7 @@ class EGCL(nn.Module):
                                 agg_hn[:, layout.pkt_slice])
         out = self.node_mlp(torch.cat([h, agg_h], dim=-1))
         if not cfg.is_plus:
-            out = self.dropout(out)
+            out = self.dropout(out, 3)
         return h + out, x_out
 
 
@@ -280,9 +289,10 @@ class InterAttention(nn.Module):
                 self.coord_mlp.lin1(v_node[:, pkt]), r, u_r)
 
         def direction(q_d, k_node_s, v_node_s, r_ds, adj_ds, bias_ds,
-                      x_d, x_s, phi):
+                      x_d, x_s, phi, call):
             """Destinations d attend over sources s. The coord update
-            sum_s t (x_d - x_s) is (sum_s t) x_d - t @ x_s."""
+            sum_s t (x_d - x_s) is (sum_s t) x_d - t @ x_s; `call` is the
+            direction's index in the coord MLP's dropout keys."""
             logits = torch.einsum("bdc,bsc->bds", q_d, k_node_s)
             logits = logits + r_ds * (q_d @ k_r)[..., None] + bias_ds
             A = _masked_softmax(logits, adj_ds, dim=-1)
@@ -290,7 +300,7 @@ class InterAttention(nn.Module):
             agg = agg + (A * r_ds).sum(-1)[..., None] * v_r
             if phi is None:
                 phi = self.coord_mlp.scalar_call(
-                    v_node_s[:, None, :, :] + r_ds[..., None] * v_r)
+                    v_node_s[:, None, :, :] + r_ds[..., None] * v_r, call)
             t = A * phi
             dx = t.sum(-1)[..., None] * x_d - torch.einsum("bds,bsx->bdx",
                                                            t, x_s)
@@ -298,10 +308,10 @@ class InterAttention(nn.Module):
 
         agg_l, dx_l = direction(q[:, lig], k_node[:, pkt], v_node[:, pkt],
                                 r, adj, pair_bias_pc.transpose(1, 2),
-                                x_l, x_p, phi_l)
+                                x_l, x_p, phi_l, 0)
         agg_p, dx_p = direction(q[:, pkt], k_node[:, lig], v_node[:, lig],
                                 r.transpose(1, 2), adj.transpose(1, 2),
-                                pair_bias_pc, x_p, x_l, phi_p)
+                                pair_bias_pc, x_p, x_l, phi_p, 1)
 
         z_h = torch.zeros_like(h[:, 0])
         agg = layout.assemble(z_h, agg_l, z_h, agg_p)
@@ -335,27 +345,24 @@ class MCAttEGNN(nn.Module):
         self.linear_out = nn.Linear(hidden, out_dim)
 
     def _run_layer(self, layer: nn.Module, *args):
-        """One EGCL or InterAttention call. With dropout on, the layer draws
-        its masks from a generator of its own, built from a seed drawn here
-        (before the layer runs), so a recomputation in the backward rebuilds
-        it and draws the forward's masks: torch.utils.checkpoint restores
-        the global RNG state, not an explicit generator's. With cfg.remat,
-        while gradients are recorded, the layer keeps only its inputs and
-        is recomputed in the backward (jax.checkpoint's trade: one more
-        forward of the layer for O(n_layers) fewer live activations)."""
-        seed = layer_seed() if self.cfg.dropout > 0 else None
-        device = args[0].device
+        """One EGCL or InterAttention call. With cfg.remat, while
+        gradients are recorded, the layer keeps only its inputs and is
+        recomputed in the backward (jax.checkpoint's trade: one more
+        forward of the layer for O(n_layers) fewer live activations). The
+        recomputation runs after the stochastic forward's block has closed,
+        so it re-enters the forward's keys (seed and round), and its
+        dropout draws are the forward's."""
+        if not (self.cfg.remat and torch.is_grad_enabled()):
+            return layer(*args)
+        # the keys as they are now: the recycle loop moves state.round on
+        state = copy.copy(active_stochastic())
 
         def run(*a):
-            g = (None if seed is None
-                 else torch.Generator(device).manual_seed(seed))
-            with dropout_rng(g):
+            with enter_stochastic(state):
                 return layer(*a)
 
-        if self.cfg.remat and torch.is_grad_enabled():
-            return checkpoint(run, *args, use_reentrant=False,
-                              preserve_rng_state=False)
-        return run(*args)
+        return checkpoint(run, *args, use_reentrant=False,
+                          preserve_rng_state=False)
 
     def forward(self, h: Tensor, x: Tensor, gi: GraphInputs,
                 pair_embed: Tensor, pair_mask: Tensor, intra_cutoff: float,

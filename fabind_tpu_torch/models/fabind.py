@@ -26,7 +26,8 @@ from fabind_tpu_torch.models.att_model import EfficientMCAttModel
 from fabind_tpu_torch.models.egnn import GraphInputs
 from fabind_tpu_torch.models.layers import (MLPBlock, TransitionDiffOutDim,
                                             active_dropout_rng,
-                                            active_host_rng)
+                                            active_stochastic, assign_sites,
+                                            stage_coin)
 from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, pairwise_dist
 from fabind_tpu_torch.ops.gumbel import (pocket_center_from_cls,
@@ -107,6 +108,7 @@ class FABind(nn.Module):
             self.layernorm = nn.LayerNorm(C, eps=1e-5)
             self.distmap_mlp = MLPBlock(C, C, 1, act="relu",
                                         sequential_names=True)
+        assign_sites(self)
 
     # ------------------------------------------------------------------ utils
     @staticmethod
@@ -132,11 +134,11 @@ class FABind(nn.Module):
             las_ref=self.cfg.normalize(batch.lig_rdkit_coords))
 
     # ---------------------------------------------------------- pocket stage
-    def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig
-                     ) -> PocketOut:
+    def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig,
+                     count=None) -> PocketOut:
         """Whole-protein pocket prediction: (compound_out [B,Nc,C],
         protein_out [B,Nr,C], cls_logits [B,Nr], radius_pred [B]; zeros for
-        base)."""
+        base). `count` is the recycle count (EfficientMCAttModel.forward)."""
         cfg = self.cfg
         lig_emb = self.compound_linear_whole_protein(batch.lig_feat)
         prot_emb = self.protein_linear_whole_protein(batch.prot_feat)
@@ -150,7 +152,8 @@ class FABind(nn.Module):
 
         gi = self._graph_inputs(batch, batch.prot_mask)
         _, h_out, _ = self.pocket_pred_model(x, h, gi,
-                                             ctx_k=shapes.ctx_k_whole)
+                                             ctx_k=shapes.ctx_k_whole,
+                                             count=count)
         h_out = self.embedding_enlarge(h_out)
         layout = gi.layout
         compound_out = h_out[:, layout.lig_slice]
@@ -219,7 +222,8 @@ class FABind(nn.Module):
         recycle counts and the gumbel-softmax uniforms (or pass them as
         `gumbel_u` [B, Nr, 2]). FABind+ always docks into the precomputed
         crop (teacher forcing). Base docks into the predicted crop when a
-        coin drawn on the host is below cfg.stage_prob and the mean center
+        coin drawn on the host from the block's seed (layers.stage_coin)
+        is below cfg.stage_prob and the mean center
         error over all B rows is below cfg.center_dist_threshold, as the
         JAX package's gate; the gate is decided on the host, so the step
         reads the center error back (one device sync, only when the coin
@@ -240,7 +244,7 @@ class FABind(nn.Module):
             u=gumbel_u if train else None)
 
         if train and not cfg.is_plus:
-            coin = float(torch.rand((), generator=active_host_rng()))
+            coin = stage_coin(active_stochastic().seed)
             use_stage2 = coin < cfg.stage_prob and float(torch.linalg.norm(
                 (batch.coords_center - pred_center).detach(), dim=-1).mean()
             ) < cfg.center_dist_threshold
@@ -281,11 +285,11 @@ class FABind(nn.Module):
     # --------------------------------------------------------------- docking
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
               protein_out: Tensor, pkt_idx: Tensor, pkt_mask: Tensor,
-              use_stage2: bool, ctx_k: int):
+              use_stage2: bool, ctx_k: int, count=None):
         """Build the docking complex from a pocket selection and run the
-        complex model and the heads: (coords, y_pred, y_pred_by_coord,
-        dis_map_target, pair_valid, confidence, ctx_overflow,
-        pocket_coords)."""
+        complex model (with recycle count `count`) and the heads: (coords,
+        y_pred, y_pred_by_coord, dis_map_target, pair_valid, confidence,
+        ctx_overflow, pocket_coords)."""
         cfg = self.cfg
         pocket_emb = G.gather_nodes(protein_out, pkt_idx)        # [B, Np, C]
         pkt_xyz = G.gather_nodes(batch.prot_xyz, pkt_idx) * pkt_mask[..., None]
@@ -319,7 +323,8 @@ class FABind(nn.Module):
         gi = self._graph_inputs(batch, pkt_mask)
         ctx_overflow = G.ctx_overflow_count(
             x, gi.layout, pkt_mask, cfg.normalize(cfg.intra_cutoff), ctx_k)
-        x_out, h_out, pair_out = self.complex_model(x, h, gi, ctx_k=ctx_k)
+        x_out, h_out, pair_out = self.complex_model(x, h, gi, ctx_k=ctx_k,
+                                                    count=count)
 
         layout = gi.layout
         if cfg.is_plus and cfg.only_last_LAS:
@@ -374,19 +379,23 @@ class FABind(nn.Module):
     def inference_diag(self, batch: FABindBatch,
                        center_override: Optional[Tensor] = None,
                        shapes: Optional[ShapeConfig] = None,
-                       pocket: Optional[PocketOut] = None):
+                       pocket: Optional[PocketOut] = None,
+                       pocket_count=None, count=None):
         """Predicted-pocket inference in the shape bucket `shapes` (default
         self.shapes: one module, with one copy of the weights, serves every
         bucket): the pocket stage, or `pocket`, the outputs of one run
         before (a sampling pass docks from its own stochastic pocket stage
         without running it twice); the rounded-sigmoid pocket center
         (no-random gumbel fallback) unless `center_override` is given; the
-        predicted crop; docking. Returns (coords [B,Nc,3], confidence [B]
-        (zeros without a confidence head), pocket_overflow [B])."""
+        predicted crop; docking. `pocket_count` and `count` are the
+        recycle counts of the pocket stage and of docking (default: drawn,
+        EfficientMCAttModel.draw_count). Returns (coords [B,Nc,3],
+        confidence [B] (zeros without a confidence head), pocket_overflow
+        [B])."""
         cfg = self.cfg
         shapes = shapes or self.shapes
         if pocket is None:
-            pocket = self._pocket_pred(batch, shapes)
+            pocket = self._pocket_pred(batch, shapes, pocket_count)
         compound_out, protein_out, cls_logits, radius_pred = pocket
         center = center_override
         if center is None:
@@ -396,7 +405,7 @@ class FABind(nn.Module):
         idx, mask, _, overflow = self._predicted_crop(
             center, batch, shapes, self._crop_radius(radius_pred))
         out = self._dock(batch, compound_out, protein_out, idx, mask, True,
-                         shapes.ctx_k)
+                         shapes.ctx_k, count)
         return out[0], out[5], overflow
 
     def inference(self, batch: FABindBatch,

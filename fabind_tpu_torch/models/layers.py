@@ -9,21 +9,92 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Iterator, NamedTuple, Optional, Sequence, Tuple
+from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fabind_tpu_torch.ops.dropout import dropout, host_u32, site_id
 from fabind_tpu_torch.ops.edge_gate import phi_rank1_pair
 
 Tensor = torch.Tensor
 
 ACTS = {"silu": F.silu, "relu": F.relu}
 
-# per thread: (device generator, host generator) of the stochastic forward
-# in progress, or None (the deterministic forward)
+# per thread: the stochastic forward in progress (a StochasticKeys), or None
+# (the deterministic forward)
 _STOCHASTIC = threading.local()
+# int rounds (0..n_iter - 1; sites outside a recycle loop draw in round 0)
+# index a device arange of this many slots
+ROUND_SLOTS = 64
+# the training stage coin's host draw
+STAGE_COIN_SITE = site_id("stage_coin")
+
+
+def upload_int64(values, device) -> Tensor:
+    """int64 values as a tensor on `device`, without waiting for the
+    device: on the card through pinned memory and a non-blocking copy."""
+    t = torch.tensor(values, dtype=torch.int64)
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def signed64(seed: int) -> int:
+    """A 64-bit seed as the int64 a tensor holds (two's complement)."""
+    seed &= 2**64 - 1
+    return seed - 2**64 if seed >= 2**63 else seed
+
+
+class StochasticKeys:
+    """One stochastic forward's keys: the seed (a host int, and per device
+    a tensor the kernels read), the current recycle round (an int, or a
+    tensor inside a traced loop) and the generator of the training-only
+    draws."""
+
+    def __init__(self, seed: Optional[int] = None,
+                 seed_tensor: Optional[Tensor] = None,
+                 generator: Optional[torch.Generator] = None, rnd=0):
+        self.seed = seed
+        self.generator = generator
+        self.round = rnd
+        self._seeds = {} if seed_tensor is None else {
+            seed_tensor.device: seed_tensor}
+        self._rounds = {}
+
+    def seed_tensor(self, device) -> Tensor:
+        t = self._seeds.get(device)
+        if t is None:
+            t = self._seeds[device] = upload_int64(signed64(self.seed), device)
+        return t
+
+    def round_tensor(self, device) -> Tensor:
+        if isinstance(self.round, Tensor):
+            return self.round
+        rounds = self._rounds.get(device)
+        if rounds is None:
+            rounds = self._rounds[device] = torch.arange(
+                ROUND_SLOTS, dtype=torch.int64, device=device)
+        return rounds[self.round]
+
+
+@contextlib.contextmanager
+def enter_stochastic(state: Optional[StochasticKeys]) -> Iterator[None]:
+    """Make `state` the current thread's stochastic forward (None: the
+    deterministic one) for the block."""
+    prev = getattr(_STOCHASTIC, "state", None)
+    _STOCHASTIC.state = state
+    try:
+        yield
+    finally:
+        _STOCHASTIC.state = prev
+
+
+def active_stochastic() -> Optional[StochasticKeys]:
+    """The current thread's stochastic forward, None in a deterministic
+    one."""
+    return getattr(_STOCHASTIC, "state", None)
 
 
 @contextlib.contextmanager
@@ -31,74 +102,106 @@ def dropout_rng(generator: Optional[torch.Generator]
                 ) -> Iterator[Optional[torch.Generator]]:
     """Run the forwards of the block stochastically in the current thread,
     as the JAX package's `deterministic=False`: every Dropout draws its mask
-    from `generator` (on the device of the tensors it masks), and with
-    cfg.random_n_iter each recycle loop's count is drawn on the host from a
-    CPU generator seeded with `generator`'s seed (the host needs the count
-    to launch the loop, and reading it from the device would wait for the
-    device). Other threads are unaffected, so concurrent calls on one shared
-    module (the serving engine's) keep their deterministic forwards. None
-    runs the block deterministically."""
-    prev = getattr(_STOCHASTIC, "rngs", None)
-    host = (None if generator is None
-            else torch.Generator().manual_seed(generator.initial_seed()))
-    _STOCHASTIC.rngs = None if generator is None else (generator, host)
-    try:
+    from the counter-based operator (ops/dropout.py) keyed by
+    `generator.initial_seed()`, its site, its call and the recycle round;
+    with cfg.random_n_iter each recycle loop's count is drawn on the host
+    from the same seed and the loop's site (`recycle_count`). The generator
+    itself gives only the training-only draws (the gumbel uniforms and the
+    pocket-center noise). Other threads are unaffected, so concurrent calls
+    on one shared module (the serving engine's) keep their deterministic
+    forwards. None runs the block deterministically."""
+    state = (None if generator is None else
+             StochasticKeys(generator.initial_seed(), generator=generator))
+    with enter_stochastic(state):
         yield generator
+
+
+@contextlib.contextmanager
+def dropout_seed(seed: Union[int, Tensor]) -> Iterator[None]:
+    """dropout_rng from a seed alone: an int (the host knows it: the recycle
+    counts can be drawn, and each device gets the seed as a tensor once), or
+    an int64 tensor on the device (a traced program's input: the masks are
+    drawn without the host, and the recycle counts must be passed to the
+    loops). Without a generator, the training-only draws are not
+    available."""
+    state = (StochasticKeys(seed_tensor=seed) if isinstance(seed, Tensor)
+             else StochasticKeys(seed))
+    with enter_stochastic(state):
+        yield
+
+
+@contextlib.contextmanager
+def recycle_round(rnd) -> Iterator[None]:
+    """Key the block's dropout draws with recycle round `rnd` (an int, or
+    an int64 tensor on the device inside a traced loop)."""
+    state = active_stochastic()
+    if state is None:
+        yield
+        return
+    prev, state.round = state.round, rnd
+    try:
+        yield
     finally:
-        _STOCHASTIC.rngs = prev
+        state.round = prev
 
 
 def active_dropout_rng() -> Optional[torch.Generator]:
-    """The current thread's dropout generator, None when dropout is off."""
-    rngs = getattr(_STOCHASTIC, "rngs", None)
-    return None if rngs is None else rngs[0]
+    """The current thread's dropout generator, None when dropout is off or
+    the seed is a tensor."""
+    state = active_stochastic()
+    return None if state is None else state.generator
 
 
-def active_host_rng() -> Optional[torch.Generator]:
-    """The current thread's host generator for the recycle counts of a
-    stochastic forward, None in a deterministic one."""
-    rngs = getattr(_STOCHASTIC, "rngs", None)
-    return None if rngs is None else rngs[1]
+def recycle_count(seed: int, site: int, n_iter: int) -> int:
+    """The recycle count, uniform in 1..n_iter, of the loop `site` in the
+    stochastic forward of `seed` (cfg.random_n_iter), drawn on the host."""
+    return 1 + ((host_u32(seed, site) * n_iter) >> 32)
 
 
-def layer_seed() -> Optional[int]:
-    """A seed for one layer's own dropout generator, drawn on the host from
-    the current thread's stochastic forward (None in a deterministic one).
-    A layer that is recomputed in the backward (torch.utils.checkpoint)
-    rebuilds its generator from the seed, so the recomputation draws the
-    masks of the forward: checkpoint restores the global RNG state, not an
-    explicit generator's."""
-    host = active_host_rng()
-    if host is None:
-        return None
-    return int(torch.randint(0, 2**62, (), generator=host))
+def stage_coin(seed: int) -> float:
+    """The training stage gate's uniform draw in [0, 1) for `seed`."""
+    return host_u32(seed, STAGE_COIN_SITE) / 2.0**32
+
+
+def assign_sites(root: nn.Module) -> None:
+    """Give every Dropout and recycle loop under `root` the id of its
+    qualified name (ops.dropout.site_id), so two sites never share a key
+    and the ids are the same in every process."""
+    for name, mod in root.named_modules():
+        if isinstance(mod, Dropout) or hasattr(mod, "site"):
+            mod.site = site_id(name)
 
 
 class Dropout(nn.Module):
-    """Inverted dropout, on exactly inside a `dropout_rng` block: elements
-    are kept with probability 1 - rate and scaled by 1 / (1 - rate), as
-    flax's nn.Dropout. `.train()` alone does not turn it on: a module in
-    training mode raises outside a `dropout_rng` block, so a training
-    forward never runs without its masks."""
+    """Inverted dropout, on exactly inside a `dropout_rng` (or
+    `dropout_seed`) block: elements are kept with probability 1 - rate and
+    scaled by 1 / (1 - rate), as flax's nn.Dropout, with masks from the
+    counter-based operator. `call` tells apart the calls of one module in
+    one recycle round. `.train()` alone does not turn it on: a module in
+    training mode raises outside such a block, so a training forward never
+    runs without its masks. `site` is set by `assign_sites` (0 for a module
+    used on its own)."""
 
     def __init__(self, rate: float):
         super().__init__()
         self.rate = rate
+        self.site = 0
 
     @property
     def active(self) -> bool:
-        return self.rate > 0 and active_dropout_rng() is not None
+        return self.rate > 0 and active_stochastic() is not None
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, call: int = 0) -> Tensor:
         if self.training and self.rate > 0 and not self.active:
             raise RuntimeError(
                 "Dropout in training mode draws its masks from "
                 "layers.dropout_rng(generator); run the forward inside one")
         if not self.active:
             return x
-        keep = torch.rand(x.shape, generator=active_dropout_rng(),
-                          device=x.device) >= self.rate
-        return torch.where(keep, x / (1.0 - self.rate), 0.0)
+        state = active_stochastic()
+        return dropout(x, state.seed_tensor(x.device),
+                       state.round_tensor(x.device), self.site, call,
+                       self.rate)
 
 
 class LnL1Parts(NamedTuple):
@@ -156,31 +259,33 @@ class MLPBlock(nn.Module):
     def lin2(self) -> nn.Linear:
         return self._modules[self._names[1]]
 
-    def finish(self, pre: Tensor) -> Tensor:
-        """Complete the MLP from the first-linear pre-activation."""
+    def finish(self, pre: Tensor, call: int = 0) -> Tensor:
+        """Complete the MLP from the first-linear pre-activation. `call`
+        tells apart the block's calls in one recycle round (their dropout
+        draws)."""
         act = ACTS[self.act]
-        x = self.lin2(self.dropout1(act(pre)))
+        x = self.lin2(self.dropout1(act(pre), call))
         if self.last_act:
             x = act(x)
-        return self.dropout2(x)
+        return self.dropout2(x, call)
 
-    def forward(self, x: Tensor) -> Tensor:
+    def forward(self, x: Tensor, call: int = 0) -> Tensor:
         if self.use_ln:
             x = self.layernorm(x)
-        return self.finish(self.lin1(x))
+        return self.finish(self.lin1(x), call)
 
-    def finish_scalar(self, pre: Tensor) -> Tensor:
+    def finish_scalar(self, pre: Tensor, call: int = 0) -> Tensor:
         """finish() for out_dim == 1, returning [...] instead of [..., 1]."""
         assert self.out_dim == 1 and not self.last_act
-        out = self.dropout1(ACTS[self.act](pre)) @ self.lin2.weight[0]
+        out = self.dropout1(ACTS[self.act](pre), call) @ self.lin2.weight[0]
         if self.bias_out:
             out = out + self.lin2.bias[0]
-        return self.dropout2(out)
+        return self.dropout2(out, call)
 
-    def scalar_call(self, x: Tensor) -> Tensor:
+    def scalar_call(self, x: Tensor, call: int = 0) -> Tensor:
         if self.use_ln:
             x = self.layernorm(x)
-        return self.finish_scalar(self.lin1(x))
+        return self.finish_scalar(self.lin1(x), call)
 
     def ln_l1_parts(self, h: Tensor) -> LnL1Parts:
         """Per-node pieces of `linear1(layernorm(v))` for the edge input
@@ -241,9 +346,9 @@ class MLPBlock(nn.Module):
         is off and act is silu or relu; else both are materialized."""
         assert self.out_dim == 1 and not self.last_act and not self.use_ln
         if self.dropout1.active or self.act not in ("silu", "relu"):
-            return (self.finish_scalar(l1_b[:, None] + r[..., None] * u),
+            return (self.finish_scalar(l1_b[:, None] + r[..., None] * u, 0),
                     self.finish_scalar(l1_a[:, None]
-                                       + r.transpose(1, 2)[..., None] * u))
+                                       + r.transpose(1, 2)[..., None] * u, 1))
         ab, ba = phi_rank1_pair(l1_a, l1_b, r.contiguous(), u,
                                 self.lin2.weight[0], self.act)
         if self.bias_out:

@@ -2,10 +2,11 @@
 ranked by the confidence head.
 
 Own copy of the library half of fabind_tpu/cli/sample.py. Dropout stays on
-in inference, drawn from one torch.Generator per pass (`layers.dropout_rng`),
-pocket centers are optionally resampled by host DBSCAN over the residues the
-pocket stage predicts positive, and the caller keeps the pose with the
-highest confidence. `cfg.model.sampling_pocket_mode` picks the protocol:
+in inference, keyed by one seed per pass (`pass_seed`, the counter-based
+operator of ops/dropout.py), pocket centers are optionally resampled by
+host DBSCAN over the residues the pocket stage predicts positive, and the
+caller keeps the pose with the highest confidence.
+`cfg.model.sampling_pocket_mode` picks the protocol:
 
   - "stochastic" (default, the reference protocol): every pass is one
     stochastic forward; its pocket stage's logits give that pass's clusters
@@ -14,11 +15,17 @@ highest confidence. `cfg.model.sampling_pocket_mode` picks the protocol:
     pass picks a cluster at random and runs a whole stochastic forward
     docked at that center.
 
-A stochastic forward also draws its recycle count from 1..n_iter
-(cfg.random_n_iter), as the JAX package's does. The draws cannot equal the
-JAX package's threefry/rbg streams. What holds instead: the same seed on the
-same device gives the same poses, and passes with different indices draw
-different masks and counts.
+A pass runs in two halves, with DBSCAN on the host between them, and
+`sample_poses` takes them from the live model (`live_halves`) or from an
+exported artifact (aot.ExportedInference.sampling_halves): the programs run
+the same functions (`stochastic_pocket`, `stochastic_dock`,
+`stochastic_inference`) with the seed and the recycle counts as tensors.
+Each half draws the recycle count of its loop on the host from the pass's
+seed (`recycle_counts`, cfg.random_n_iter, as the JAX package's
+non-deterministic forward). The draws cannot equal the JAX package's
+threefry/rbg streams. What holds instead: the same seed gives the same
+poses, live or exported, and passes with different indices draw different
+masks and counts.
 """
 from __future__ import annotations
 
@@ -28,8 +35,10 @@ import numpy as np
 import torch
 from scipy.spatial.distance import cdist
 
+from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.data.types import to_device
-from fabind_tpu_torch.models.layers import dropout_rng
+from fabind_tpu_torch.models.layers import dropout_seed, recycle_count
+from fabind_tpu_torch.ops.dropout import site_id
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
 
 Tensor = torch.Tensor
@@ -131,33 +140,107 @@ def _probs(logits: _HostCopy) -> np.ndarray:
     return 1.0 / (1.0 + np.exp(-logits.numpy()))
 
 
-def pass_generator(seed: int, batch_idx: int, s: int, device
-                   ) -> torch.Generator:
-    """The dropout generator of sampling pass s of batch batch_idx, on
-    `device`."""
-    g = torch.Generator(device=device)
-    g.manual_seed(((seed * 1000003 + batch_idx) * 1000003 + s) % 2 ** 63)
-    return g
+def pass_seed(seed: int, batch_idx: int, s: int) -> int:
+    """The dropout seed of sampling pass s of batch batch_idx."""
+    return ((seed * 1000003 + batch_idx) * 1000003 + s) % 2 ** 63
+
+
+# the recycle loops' sites (layers.assign_sites names them so)
+POCKET_LOOP_SITE = site_id("pocket_pred_model")
+DOCK_LOOP_SITE = site_id("complex_model")
+
+
+def recycle_counts(m: ModelConfig, seed: int) -> Tuple[int, int]:
+    """(pocket stage, docking) recycle counts of the stochastic forward of
+    `seed`: the counts its model draws (EfficientMCAttModel.draw_count)."""
+    if not m.random_n_iter:
+        return m.pocket_pred_n_iter, m.n_iter
+    return (recycle_count(seed, POCKET_LOOP_SITE, m.pocket_pred_n_iter),
+            recycle_count(seed, DOCK_LOOP_SITE, m.n_iter))
+
+
+def stochastic_pocket(model, batch, shapes, seed, count):
+    """The pocket half of a stochastic pass: the pocket stage under `seed`
+    with recycle count `count` (ints, or tensors in a traced program), and
+    its rounded default center in float32. Returns (pocket outputs,
+    center [B, 3])."""
+    with dropout_seed(seed):
+        pocket = model._pocket_pred(batch, shapes, count)
+    m = model.cfg
+    return pocket, pocket_center_rounded(pocket[2], batch.prot_xyz,
+                                         batch.prot_mask, m.gs_tau,
+                                         m.gs_hard).float()
+
+
+def stochastic_dock(model, batch, shapes, pocket, center, seed, count):
+    """The dock half of a stochastic pass: docking from the pass's pocket
+    outputs at `center`. Returns (coords [B,Nc,3], confidence [B])."""
+    with dropout_seed(seed):
+        coords, conf, _ = model.inference_diag(batch, center, shapes,
+                                               pocket=pocket, count=count)
+    return coords, conf
+
+
+def stochastic_inference(model, batch, shapes, center, seed, pocket_count,
+                         count):
+    """A whole stochastic forward docked at `center` (the fixed pocket
+    mode's pass). Returns (coords [B,Nc,3], confidence [B])."""
+    with dropout_seed(seed):
+        coords, conf, _ = model.inference_diag(
+            batch, center, shapes, pocket_count=pocket_count, count=count)
+    return coords, conf
+
+
+def live_halves(model, cfg):
+    """(pocket_fn, dock_fn) of the live model in bucket cfg, with the
+    per-mode contract of sample_poses' `halves`:
+
+      - "stochastic": pocket_fn(batch, seed) -> (pocket outputs, center);
+        dock_fn(batch, pocket, center, seed) -> (coords, confidence)
+      - "fixed": pocket_fn(batch) -> pocket outputs (deterministic);
+        dock_fn(batch, center, seed) -> (coords, confidence)
+
+    seed is the pass's int seed; the recycle counts are drawn from it."""
+    m, shapes = cfg.model, cfg.shapes
+    if m.sampling_pocket_mode == "stochastic":
+        def pocket_fn(batch, seed):
+            return stochastic_pocket(model, batch, shapes, seed,
+                                     recycle_counts(m, seed)[0])
+
+        def dock_fn(batch, pocket, center, seed):
+            return stochastic_dock(model, batch, shapes, pocket, center,
+                                   seed, recycle_counts(m, seed)[1])
+    else:
+        def pocket_fn(batch):
+            return model._pocket_pred(batch, shapes)
+
+        def dock_fn(batch, center, seed):
+            return stochastic_inference(model, batch, shapes, center, seed,
+                                        *recycle_counts(m, seed))
+    return pocket_fn, dock_fn
 
 
 def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
-                 batch_idx: int = 0) -> Tuple[Tensor, Tensor]:
+                 batch_idx: int = 0, halves=None) -> Tuple[Tensor, Tensor]:
     """`sample_size` stochastic docking passes over one batch of bucket cfg
     (`cfg.shapes`, with the protocol of `cfg.model.sampling_pocket_mode`
     and `cfg.model.use_clustering`); returns (coords [S, B, Nc, 3], scores
     [S, B]) on the batch's device, in the model's dtype. Nothing is copied
     back but each pass's pocket logits, which the host clusters.
 
-    Pass s draws its dropout masks from `pass_generator(seed, batch_idx,
-    s)`: its pocket stage first, then its docking. The cluster picks draw
-    from one numpy RandomState per batch seeded from (seed, batch_idx), as
-    the JAX package's do. Cluster centers go to the crop in float32."""
+    `halves=(pocket_fn, dock_fn)` runs the passes through other halves with
+    `live_halves`' contract (an exported artifact's; `model` may then be
+    None). Pass s is keyed by `pass_seed(seed, batch_idx, s)`: its pocket
+    half first, then its docking. The cluster picks draw from one numpy
+    RandomState per batch seeded from (seed, batch_idx), as the JAX
+    package's do. Cluster centers go to the crop in float32."""
     m = cfg.model
     shapes = cfg.shapes
     use_clustering = m.use_clustering
     pocket_mode = m.sampling_pocket_mode
     if pocket_mode not in ("fixed", "stochastic"):
         raise ValueError(f"sampling_pocket_mode {pocket_mode!r}")
+    pocket_fn, dock_fn = halves or live_halves(model, cfg)
     device = batch.prot_xyz.device
     rng = np.random.RandomState((seed * 1000003 + batch_idx) % (2 ** 31))
     if use_clustering:
@@ -168,52 +251,43 @@ def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
         return to_device(torch.from_numpy(pick_cluster_centers(
             clusters, m.choose_cluster_prob, default, rng)), device)
 
-    def rounded_center(cls_logits: Tensor) -> Tensor:
-        return pocket_center_rounded(cls_logits, batch.prot_xyz,
-                                     batch.prot_mask, m.gs_tau,
-                                     m.gs_hard).float()
-
-    gens = [pass_generator(seed, batch_idx, s, device)
-            for s in range(sample_size)]
+    seeds = [pass_seed(seed, batch_idx, s) for s in range(sample_size)]
     coords: List[Tensor] = []
     scores: List[Tensor] = []
     with torch.inference_mode():
         if pocket_mode == "stochastic":
-            # every pocket stage is launched, with the copy of its logits
+            # every pocket half is launched, with the copy of its logits
             # and its default center, before the first copy is read: the
-            # host clusters pass s while the device runs the pocket stages
+            # host clusters pass s while the device runs the pocket halves
             # behind it and the docks already queued
             pockets = []
-            for g in gens:
-                with dropout_rng(g):
-                    pocket = model._pocket_pred(batch, shapes)
-                center = rounded_center(pocket[2])
+            for sd in seeds:
+                pocket, center = pocket_fn(batch, sd)
                 host = ((_HostCopy(pocket[2]), _HostCopy(center))
                         if use_clustering else None)
                 pockets.append((pocket, center, host))
-            for g, (pocket, center, host) in zip(gens, pockets):
+            for sd, (pocket, center, host) in zip(seeds, pockets):
                 if use_clustering:
                     center = cluster_center(dbscan_clusters(
                         _probs(host[0]), prot_xyz, prot_mask, m.dbscan_eps,
                         m.dbscan_min_samples), host[1].numpy())
-                with dropout_rng(g):
-                    c, conf, _ = model.inference_diag(batch, center, shapes,
-                                                      pocket=pocket)
+                c, conf = dock_fn(batch, pocket, center, sd)
                 coords.append(c)
                 scores.append(conf)
         else:
-            pocket = model._pocket_pred(batch, shapes)
-            default = rounded_center(pocket[2])
+            pocket = pocket_fn(batch)
+            default = pocket_center_rounded(
+                pocket[2], batch.prot_xyz, batch.prot_mask, m.gs_tau,
+                m.gs_hard).float()
             if use_clustering:
                 clusters = dbscan_clusters(
                     _probs(_HostCopy(pocket[2])), prot_xyz, prot_mask,
                     m.dbscan_eps, m.dbscan_min_samples)
                 default_np = default.cpu().numpy()
-            for g in gens:
+            for sd in seeds:
                 center = (cluster_center(clusters, default_np)
                           if use_clustering else default)
-                with dropout_rng(g):
-                    c, conf, _ = model.inference_diag(batch, center, shapes)
+                c, conf = dock_fn(batch, center, sd)
                 coords.append(c)
                 scores.append(conf)
     return torch.stack(coords), torch.stack(scores)

@@ -17,7 +17,9 @@ come back in the world frame of the input structure.
 - FABind+ presets serve the same way; `dock_best_of` runs best-of-N
   sampling (sample.py) and keeps each request's most confident pose.
 - `DockingEngine.from_exported(dir)` serves the per-bucket programs of an
-  artifact directory (aot.py, cli/export.py) without building the model.
+  artifact directory (aot.py, cli/export.py) without building the model;
+  `dock_best_of` too when the artifact holds the sampling programs
+  (`cli.export --sampling`).
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -36,12 +38,13 @@ Example:
 
 Thread safety: every dock_* method may be called from several threads at
 once. The protein-row cache is read and filled under an RLock; the model runs
-outside it (its forward keeps no state), an exported program inside it, so
-concurrent calls interleave at batch granularity and give the poses of
-serial calls. A protein's ESM2 forward runs under a lock of its own path,
+outside it (its forward keeps no state), and an exported program runs under
+the artifact's own lock one call at a time (aot.ExportedInference), so
+concurrent calls interleave at program-call granularity (a best-of-N pass
+releases it between its halves) and give the poses of serial calls. A protein's ESM2 forward runs under a lock of its own path,
 not the engine's, so it does not stall requests for other proteins.
 `dock_best_of` turns dropout on for its own thread only
-(layers.dropout_rng), so a concurrent dock_raw on the same engine stays
+(layers.dropout_seed), so a concurrent dock_raw on the same engine stays
 deterministic.
 """
 from __future__ import annotations
@@ -187,8 +190,8 @@ class DockingEngine:
         in, so no FABind module is built (`model` is None). The config,
         buckets, batch size and dtype come from the manifest. Routing, the
         protein-row cache, dock_raw, dock_screen, dock_sdf and warmup are
-        the live engine's; dock_best_of raises (the artifact holds no
-        sampling program).
+        the live engine's; dock_best_of runs the artifact's sampling halves
+        and raises with a re-export hint when it has none.
 
         The manifest's post-optimization steps run after the program with
         the live engine's function; a `post_optim_steps` other than the
@@ -312,10 +315,7 @@ class DockingEngine:
                 coords, conf, overflow = self.model.inference_diag(
                     batch, shapes=cfg_b.shapes)
             else:
-                # under the engine's lock: an exported program's module is
-                # not documented as safe to call from several threads
-                with self._lock:
-                    coords, conf, overflow = self._exported.fn(cfg_b)(batch)
+                coords, conf, overflow = self._exported.fn(cfg_b)(batch)
         return self._post_optimize(coords, batch), conf, overflow
 
     def _best_of_batch(self, batch: FABindBatch, cfg_b: FABindConfig,
@@ -327,8 +327,15 @@ class DockingEngine:
         in float32 as the JAX package does: in bf16 a coordinate near 32 A
         moves in steps of 0.25 A, and most lr-0.1 Adam updates round
         away."""
-        coords, scores = sample_poses(self.model, batch, cfg_b, sample_size,
-                                      seed=seed, batch_idx=batch_idx)
+        if self._exported is None:
+            coords, scores = sample_poses(self.model, batch, cfg_b,
+                                          sample_size, seed=seed,
+                                          batch_idx=batch_idx)
+        else:
+            coords, scores = sample_poses(
+                None, batch, cfg_b, sample_size, seed=seed,
+                batch_idx=batch_idx,
+                halves=self._exported.sampling_halves(cfg_b))
         best = scores.float().argmax(0)                       # [B]
         rows = torch.arange(best.shape[0], device=best.device)
         return (self._post_optimize(coords[best, rows].float(), batch),
@@ -390,15 +397,13 @@ class DockingEngine:
         cfg.model.use_clustering), each request's pose with the highest
         confidence kept. Routing, the protein-row cache, the bf16 cast and
         the post-optimization (of the winner only) are dock_raw's. The same
-        seed on the same device gives the same poses. Needs a confidence
-        head (preset "fabind_plus_sampling"); pocket_truncated is not
-        measured on this path."""
-        if self._exported is not None:
-            raise ValueError(
-                "this engine serves an exported artifact, which holds no "
-                "sampling programs (the port does not export them yet): "
-                "re-export once it does, or serve dock_best_of from a live "
-                "DockingEngine")
+        seed gives the same poses, live or from an artifact exported with
+        its sampling programs (whose halves run here instead of the
+        model's). Needs a confidence head (preset "fabind_plus_sampling");
+        pocket_truncated is not measured on this path."""
+        if self._exported is not None and not self._exported.sampling:
+            from fabind_tpu_torch.aot import NO_SAMPLING
+            raise ValueError(NO_SAMPLING)
         if not self.cfg.model.confidence_training:
             raise ValueError("dock_best_of ranks poses by the confidence "
                              "head: serve preset 'fabind_plus_sampling'")

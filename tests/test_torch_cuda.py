@@ -6,7 +6,9 @@ CPU, seeded best-of-N sampling); and a training step on the card against
 the same step on the CPU, with the gate's gradients at a docking training
 shape; and the evaluation and confidence paths on the card against the
 CPU; and the structure-file path on the card (the ESM2 encoder against
-the CPU, dock_sdf); and exported programs served on the card.
+the CPU, dock_sdf); and exported programs served on the card; and the
+dropout kernel against its plain version, and an exported sampling
+artifact's dock_best_of on the card against the live engine's.
 
 Needs a CUDA device and nvcc; skips elsewhere. The file imports neither JAX
 nor the JAX package, so it runs where only PyTorch is installed:
@@ -552,3 +554,60 @@ def test_exported_engine_on_card_matches_live(cuda, tmp_path):
         for g, w in zip(got, live):
             assert g.error is None
             np.testing.assert_array_equal(g.coords, w.coords)
+
+
+# ---------------------------------------------------------------- dropout
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,rate", [(8 * 161 * 49 * 32, 0.1), (4099, 0.5)])
+def test_dropout_kernel_matches_plain(cuda, dtype, n, rate):
+    """The kernel's masks and values equal the plain version's bit for bit,
+    on the card and on the CPU, a ragged length included; its Philox gives
+    Random123's known answers; its gradient is grad x mask x scale."""
+    from fabind_tpu_torch.ops import dropout as D
+
+    rows = np.array([[0] * 6, [0xFFFFFFFF] * 6,
+                     [0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344,
+                      0xA4093822, 0x299F31D0]], np.uint32)
+    want = [D.philox4x32_10(r[:4].tolist(), r[4:].tolist()) for r in rows]
+    np.testing.assert_array_equal(D.philox_on_device(rows),
+                                  np.array(want, np.uint32))
+    x = torch.randn(n, generator=torch.Generator().manual_seed(0)).to(dtype)
+    seed, rnd = torch.tensor(-5, device=cuda), torch.tensor(3, device=cuda)
+    D.KERNEL.launches = 0
+    got = D.dropout(x.to(cuda), seed, rnd, 17, 2, rate)
+    assert D.KERNEL.launches == 1
+    plain = D.dropout_reference(x.to(cuda), seed, rnd, 17, 2, rate)
+    host = D.dropout(x, seed.cpu(), rnd.cpu(), 17, 2, rate)
+    assert torch.equal(got, plain) and torch.equal(got.cpu(), host)
+    xg = x.to(cuda).requires_grad_()
+    g = torch.randn(n, device=cuda).to(dtype)
+    (gx,) = torch.autograd.grad(D.dropout(xg, seed, rnd, 17, 2, rate), xg, g)
+    assert torch.equal(gx, D.dropout_reference(g, seed, rnd, 17, 2, rate))
+
+
+def test_sampling_artifact_from_cpu_on_card_matches_live(cuda, tmp_path):
+    """A sampling artifact exported on the CPU (fp32 weights, bf16 cast) and
+    served on the card: dock_best_of equals the live card engine's bit for
+    bit for the same seed, through the dropout kernel."""
+    from fabind_tpu_torch.aot import export_inference
+    from fabind_tpu_torch.models.fabind import init_params, make_model
+    from fabind_tpu_torch.ops import dropout as D
+
+    cfg = preset("fabind_plus_sampling", **dict(
+        ENGINE_KW, max_ligand=8, max_pocket=16, max_protein=32,
+        mean_layers=1, n_iter=3))
+    model = make_model(cfg)
+    init_params(model, torch.Generator().manual_seed(0))
+    raws = [_raw(5, 12, 1), _raw(6, 14, 4), _raw(7, 20, 6)]
+    live = DockingEngine(cfg, state_dict=model.state_dict(), batch_size=2)
+    want = live.dock_best_of(raws, sample_size=3, seed=4)
+    export_inference(cfg, model.state_dict(), str(tmp_path), batch_size=2,
+                     device="cpu", sampling=True)
+    eng = DockingEngine.from_exported(str(tmp_path))
+    D.KERNEL.launches = 0
+    got = eng.dock_best_of(raws, sample_size=3, seed=4)
+    assert D.KERNEL.launches > 0
+    for g, w in zip(got, want):
+        assert g.error is None and np.isfinite(g.coords).all()
+        np.testing.assert_array_equal(g.coords, w.coords)
+        assert g.confidence == w.confidence

@@ -219,22 +219,33 @@ def test_exported_engine_under_threads(setup):
             np.testing.assert_array_equal(g.coords, w.coords)
 
 
-def test_best_of_and_sampling_export_raise(setup, tmp_path):
-    """No sampling programs in the port's artifacts: the exported engine
-    refuses dock_best_of with a re-export hint, and export refuses
-    sampling=True."""
+def test_best_of_and_sampling_export_raise(setup):
+    """An artifact exported without the sampling programs: the exported
+    engine refuses dock_best_of with the re-export hint."""
+    exported = setup[-1]
+    assert not exported._exported.sampling
+    with pytest.raises(ValueError, match="re-export .*--sampling"):
+        exported.dock_best_of([make_raw(n=5, nr=20, seed=1)], sample_size=2)
+    with pytest.raises(ValueError, match="re-export"):
+        exported._exported.sampling_halves(exported.bucket_cfgs[0])
+
+
+def test_sampling_export_needs_confidence_head(setup, tmp_path):
+    """export_inference(sampling=True) and cli.export --sampling refuse a
+    preset without the confidence head, before writing an artifact."""
     from fabind_tpu_torch.cli import export as cli_export
 
-    cfg, _, _, sd, _, _, _, exported = setup
-    with pytest.raises(ValueError, match="re-export"):
-        exported.dock_best_of([make_raw(n=5, nr=20, seed=1)], sample_size=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        export_inference(cfg, sd, str(tmp_path / "x"), batch_size=2,
-                         device="cpu", sampling=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_export.main(["--ckpt", "none.bin", "--output", str(tmp_path),
-                         "--device", "cpu", "--sampling"])
-    assert not os.listdir(tmp_path)
+    cfg, _, _, sd, _, _, _, _ = setup
+    out = tmp_path / "art"
+    with pytest.raises(AssertionError, match="confidence head"):
+        export_inference(cfg, sd, str(out), batch_size=2, device="cpu",
+                         sampling=True)
+    ckpt = tmp_path / "sd.pt"
+    torch.save(sd, ckpt)
+    with pytest.raises(AssertionError, match="confidence head"):
+        cli_export.main(["--ckpt", str(ckpt), "--output", str(out),
+                         "--device", "cpu", "--sampling", *_TINY_SET])
+    assert not out.exists()
 
 
 def test_wrong_bucket_batch_clear_error(setup):

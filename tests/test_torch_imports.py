@@ -30,7 +30,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "train.confidence", "models.esm2", "data.featurize",
               "cli.inference", "cli.preprocess", "aot", "cli.export",
               "cli.selftest", "data.mdb", "data.kv", "data.frame",
-              "data.isomorphism"):
+              "data.isomorphism", "ops.dropout"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
@@ -71,7 +71,8 @@ def test_train_cli_without_cuda_raises(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("cli", ["evaluate", "sample", "train_confidence",
                                  "inference", "preprocess", "export",
-                                 "selftest", "preprocess-lmdb"])
+                                 "selftest", "preprocess-lmdb",
+                                 "export-sampling"])
 def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
     """Without --device cpu the CLIs run on CUDA, and raise without it
     (before reading anything)."""
@@ -88,6 +89,9 @@ def test_new_clis_without_cuda_raise(monkeypatch, tmp_path, cli):
                                 none],
             "train_confidence": ["--data", str(tmp_path)],
             "export": ["--ckpt", none + ".bin", "--output", none],
+            "export-sampling": ["--preset", "fabind_plus_sampling", "--ckpt",
+                                none + ".bin", "--output", none,
+                                "--sampling"],
             "selftest": []}.get(
         cli, ["--data", str(tmp_path), "--ckpt", none + ".bin"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
