@@ -149,7 +149,24 @@ Phases, each of which raises on failure (non-zero exit):
      load seconds, ms per pocket and dock half (live with int counts, live
      with tensor counts and exported), best-of-8 complexes/s live and
      exported, the dropout kernel's ms per launch beside its bound, its
-     plain version and torch.rand + torch.where, the phase's wall time.
+     plain version and torch.rand + torch.where, the phase's wall time;
+ 13. flexible docking (preset `fabflex`: the pocket residues move with the
+     ligand across recycles) on phase 3's seeded weights (the same
+     parameter tree), bf16 and fp32 over phase 3's buckets and 32
+     requests: one finite pose and one finite docked pocket per request
+     (a residue index per coordinate row), the gate launched 33 times per
+     batch in each bucket, the fp32 pocket moved from its input crop, at
+     n_iter=1 the rigid engine's ligand within 1e-5 A (fp32),
+     dock_screen equal to dock_raw, a `/dock_raw` round trip through the
+     daemon with the same pocket fields and 33 launches per batch. The
+     small bucket exported by `cli.export --preset fabflex` on the card in
+     a process of its own started before phase 7; `from_exported` serves
+     its 8 requests equal to live bit for bit, pockets included, with 33
+     launches per batch; `cli.selftest --preset fabflex --bf16 --train
+     --prod`. Times: batch latency per bucket and complexes/s in turns
+     with a base engine of the same weights, the gate's ms per batch,
+     bf16 vs fp32 ligand and pocket distances (printed, not gated),
+     export and load seconds, peak memory, the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -373,6 +390,9 @@ DROPOUT_GRAD_SHAPE = (8, 1000)
 SAMPLING_ROOT = Path("build/chip_smoke_sampling")
 # the JSON line's "replaces" of the dropout kernel: the JAX package's
 # dropout, flax's, which XLA fuses (no TPU kernel)
+# flexible docking (phase 13): where the state dict, the artifact (small
+# bucket) and the export log are written
+FLEX_ROOT = Path("build/chip_smoke_flex")
 DROPOUT_REPLACES = ("fabind_tpu/models/layers.py:82 (flax nn.Dropout; no "
                     "TPU kernel)")
 
@@ -827,7 +847,9 @@ def post_dock_raw(base: str, raws, path: str = "/dock_raw"):
 
 def http_round_trip(engine, raws):
     """The serving daemon on 127.0.0.1 in a thread: /health, then /dock_raw
-    with the npz of `raws`; its poses must equal engine.dock_raw's."""
+    with the npz of `raws`; its poses (and a flexible engine's pocket
+    fields) must equal engine.dock_raw's. Returns the gate launches of the
+    /dock_raw request."""
     srv = make_server(engine, "127.0.0.1", 0)
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
@@ -837,7 +859,9 @@ def http_round_trip(engine, raws):
             health = json.loads(r.read())
         check(health["status"] == "ok" and health["bf16"] is True,
               f"/health {health}")
+        before = edge_gate.KERNEL.launches
         got = post_dock_raw(base, raws)
+        launches = edge_gate.KERNEL.launches - before
     finally:
         srv.shutdown()
         srv.server_close()
@@ -849,8 +873,17 @@ def http_round_trip(engine, raws):
         check(g["error"] is None and w.error is None, "HTTP pose error")
         check(np.array_equal(np.asarray(g["coords"], np.float32), w.coords),
               "HTTP poses equal engine.dock_raw's")
-    print(f"http: /health {health}; /dock_raw {len(got)} poses equal "
-          f"engine.dock_raw's")
+        check(("pocket_coords" in g) == (w.pocket_coords is not None),
+              "HTTP pocket fields exactly for a flexible engine")
+        if w.pocket_coords is not None:
+            check(np.array_equal(np.asarray(g["pocket_coords"], np.float32),
+                                 w.pocket_coords)
+                  and g["pocket_residues"] == w.pocket_residues.tolist(),
+                  "HTTP pocket fields equal engine.dock_raw's")
+    pockets = " with their pockets" if w.pocket_coords is not None else ""
+    print(f"http: /health {health}; /dock_raw {len(got)} poses{pockets} "
+          f"equal engine.dock_raw's; edge_gate launches {launches}")
+    return launches
 
 
 def pocket_center(engine, batch, cfg_b):
@@ -2317,11 +2350,18 @@ def export_args(preset_name, ckpt, out, device, shapes=None):
             + [f"--set={k}={v}" for k, v in sets.items()])
 
 
-def start_process(module: str, args, log: Path) -> subprocess.Popen:
-    """`python -m module args` from this checkout, its output in `log`."""
+def start_process(module: str, args, log: Path,
+                  background: bool = False) -> subprocess.Popen:
+    """`python -m module args` from this checkout, its output in `log`.
+    A `background` process (an export needed phases later) runs at a lower
+    CPU priority with one OpenMP thread, so that it takes the host's idle
+    cycles and not the phases' that run beside it."""
+    env = dict(os.environ, OMP_NUM_THREADS="1") if background else None
     with open(log, "w") as f:
-        return subprocess.Popen([sys.executable, "-m", module, *args],
-                                stdout=f, stderr=subprocess.STDOUT)
+        return subprocess.Popen(
+            [sys.executable, "-m", module, *args], stdout=f,
+            stderr=subprocess.STDOUT, env=env,
+            preexec_fn=(lambda: os.nice(10)) if background else None)
 
 
 def finish_export(proc: subprocess.Popen, log: Path, what: str,
@@ -2920,7 +2960,7 @@ def start_sampling_export(buckets) -> subprocess.Popen:
         "fabind_tpu_torch.cli.export",
         export_args("fabind_plus_sampling", sd, SAMPLING_ROOT / "artifact",
                     "cuda", buckets[0]) + ["--sampling"],
-        SAMPLING_ROOT / "export.log")
+        SAMPLING_ROOT / "export.log", background=True)
 
 
 def stop_processes(procs) -> None:
@@ -3170,13 +3210,250 @@ def dropout_rows(times, max_err, paths) -> list:
     return rows
 
 
+def start_flex_export(buckets) -> subprocess.Popen:
+    """Phase 13's export, started before phase 7 so that it runs beside
+    phases 7-12: phase 3's seeded weights (fabflex has base FABind's
+    parameter tree) through cli.export --preset fabflex (bf16, the small
+    bucket, on the card) in a process of its own."""
+    shutil.rmtree(FLEX_ROOT, ignore_errors=True)
+    FLEX_ROOT.mkdir(parents=True)
+    sd = write_seeded_state_dict("fabflex", FLEX_ROOT / "fabflex.pt")
+    return start_process(
+        "fabind_tpu_torch.cli.export",
+        export_args("fabflex", sd, FLEX_ROOT / "artifact", "cuda",
+                    buckets[0]), FLEX_ROOT / "export.log", background=True)
+
+
+def check_pockets(poses, raws, what):
+    """Each pose of a flexible engine carries its docked pocket: finite
+    float32 coordinates, one residue index of the request's protein per
+    row."""
+    for p, raw in zip(poses, raws):
+        check(p.pocket_coords is not None and p.pocket_residues is not None,
+              f"{what}: a pose without its pocket")
+        n = len(p.pocket_residues)
+        check(p.pocket_coords.shape == (n, 3) and n > 0,
+              f"{what}: pocket shape {p.pocket_coords.shape}, {n} residues")
+        check(p.pocket_coords.dtype == np.float32
+              and bool(np.isfinite(p.pocket_coords).all()),
+              f"{what}: finite float32 pocket")
+        check(int(p.pocket_residues.max()) < len(raw["protein_xyz"]),
+              f"{what}: pocket residues inside the protein")
+
+
+def same_pockets(a_poses, b_poses) -> bool:
+    return all(np.array_equal(a.pocket_residues, b.pocket_residues)
+               and np.array_equal(a.pocket_coords, b.pocket_coords)
+               for a, b in zip(a_poses, b_poses))
+
+
+def pocket_moves(poses, raws) -> np.ndarray:
+    """Per-residue distance of each docked pocket from its input crop."""
+    return np.concatenate([
+        np.linalg.norm(p.pocket_coords - raw["protein_xyz"][
+            p.pocket_residues], axis=-1) for p, raw in zip(poses, raws)])
+
+
+def gate_ms_per_batch(cfg) -> float:
+    """The gate kernel's device time in one batch of each bucket's served
+    shapes, summed over the batch's launches (bf16)."""
+    total = {}
+    for label, shapes in cfg.items():
+        total[label] = sum(
+            n * cuda_time_ms(lambda a=pair_inputs(B, Na, Nb, H,
+                                                  torch.bfloat16):
+                             edge_gate.phi_rank1_pair(*a))
+            for _, B, Na, Nb, H, n in shapes)
+    return total
+
+
+def time_in_turns(engines, by_bucket, raws, what, card_line, rounds=6):
+    """Batch latency per bucket and dock_raw complexes/s of two engines
+    timed in turns (A B, B A, ...), so that the host's drift falls on
+    both: {name: ({label: median ms}, complexes/s)}."""
+    names = list(engines)
+    batches = {n: first_batches(e, by_bucket) for n, e in engines.items()}
+    out = {n: ({}, 0.0) for n in names}
+    for i, (label, _, _) in enumerate(batches[names[0]]):
+        secs = {n: [] for n in names}
+        for r in range(rounds):
+            for n in names if r % 2 == 0 else names[::-1]:
+                _, cfg_b, batch = batches[n][i]
+                t0 = time.perf_counter()
+                engines[n].run_batch(batch, cfg_b)
+                torch.cuda.synchronize()
+                secs[n].append(time.perf_counter() - t0)
+        for n in names:
+            out[n][0][label] = statistics.median(secs[n]) * 1e3
+        print(f"time {what} model batch bucket {label} ({BATCH} complexes, "
+              f"in turns): " + "; ".join(
+                  f"{n} median {out[n][0][label]:.2f} ms of "
+                  f"{[round(t * 1e3, 2) for t in secs[n]]}" for n in names)
+              + f" [{card_line}]")
+    secs = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names if r % 2 == 0 else names[::-1]:
+            t0 = time.perf_counter()
+            engines[n].dock_raw(raws)
+            secs[n].append(time.perf_counter() - t0)
+    for n in names:
+        out[n] = (out[n][0], len(raws) / statistics.median(secs[n]))
+    print(f"time {what} dock_raw {len(raws)} requests (in turns, protein "
+          f"cache warm): " + "; ".join(
+              f"{n} {out[n][1]:.2f} complexes/s of "
+              f"{[round(t, 3) for t in secs[n]]} s" for n in names)
+          + f" [{card_line}]")
+    return out
+
+
+def flex_phase(raws, buckets, proc, card_line):
+    """Phase 13: flexible docking (preset fabflex) served live in bf16 and
+    fp32 on phase 3's seeded weights, through the daemon and from the
+    artifact exported by `start_flex_export`, timed in turns with the base
+    engine; then cli.selftest. Returns the gate launches by path, each
+    {dtype: {bucket: launches}}."""
+    t_phase = time.perf_counter()
+    cfg = preset("fabflex", **SMOKE_SHAPES)
+    small = buckets[0]
+    small_label = bucket_label(small)
+    check(cfg.model.flexible_docking, "fabflex is flexible")
+
+    # live bf16: the main path, dock_screen, the daemon, times
+    engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    warm = engine.warmup()
+    print(f"time fabflex bf16 warmup ({len(buckets)} buckets): {warm:.3f} "
+          f"s [{card_line}]")
+    poses, counter, _, _ = serve_main_path(engine, raws, "fabflex bf16")
+    check_pockets(poses, raws, "fabflex bf16")
+    launches = {"": {torch.bfloat16: counter.launches}}
+    by_bucket = route(engine, raws)
+    protein = {k: raws[0][k] for k in ("protein_xyz", "esm_feat")}
+    ligs = [{k: v for k, v in r.items() if k not in protein}
+            for r in raws[:N_SCREEN]]
+    screened = engine.dock_screen(protein, ligs)
+    direct = engine.dock_raw([dict(lig, **protein) for lig in ligs])
+    check_poses(screened, ligs, "fabflex dock_screen")
+    check(pose_dist(screened, direct).max() == 0.0
+          and same_pockets(screened, direct),
+          "fabflex dock_screen equals dock_raw, pockets included")
+    print(f"fabflex dock_screen {N_SCREEN} ligands equals dock_raw, "
+          f"pockets included")
+    n_daemon = http_round_trip(engine, raws[:BATCH])
+    per_batch = sum(s[-1] for s in served_pair_shapes(cfg))
+    n_batches = len(list(engine.batches(raws[:BATCH], [None] * BATCH)))
+    check(n_daemon == per_batch * n_batches,
+          f"fabflex daemon launched the gate {n_daemon} times in "
+          f"{n_batches} batches")
+    held = reset_peak()
+    engine.dock_raw(raws)
+    print_peak("fabflex bf16 engine (dock_raw of the requests)", held,
+               card_line)
+    rigid = DockingEngine(preset("fabind", **SMOKE_SHAPES), buckets=buckets,
+                          batch_size=BATCH, seed=0)
+    rigid.warmup()
+    turns = time_in_turns({"fabind": rigid, "fabflex": engine}, by_bucket,
+                          raws, "bf16 fabind vs fabflex", card_line)
+    (lat0, rate0), (lat, rate) = turns["fabind"], turns["fabflex"]
+    for label, ms in lat.items():
+        print(f"time fabflex / fabind bf16 model batch bucket {label}: "
+              f"{ms / lat0[label]:.3f}x [{card_line}]")
+    print(f"time fabflex / fabind bf16 dock_raw complexes/s: "
+          f"{rate / rate0:.3f}x [{card_line}]")
+    served = {bucket_label(s): served_pair_shapes(cfg.replace(shapes=s))
+              for s in buckets}
+    for label, ms in gate_ms_per_batch(served).items():
+        print(f"time fabflex edge_gate bf16 per batch bucket {label}: "
+              f"{ms:.4f} ms in {per_batch} launches [{card_line}]")
+    del engine, rigid
+    torch.cuda.empty_cache()
+
+    # live fp32: the pocket moved; bf16 against it (printed, not gated:
+    # the JAX package has no bound for fabflex)
+    engine32 = DockingEngine(cfg, buckets=buckets, batch_size=BATCH,
+                             bf16=False, seed=0)
+    poses32, counter, _, _ = serve_main_path(engine32, raws, "fabflex fp32")
+    check_pockets(poses32, raws, "fabflex fp32")
+    launches[""][torch.float32] = counter.launches
+    moved = pocket_moves(poses32, raws)
+    print(f"fabflex fp32 docked pocket vs its input crop, {len(moved)} "
+          f"residues: distance mean {moved.mean():.3e} A, max "
+          f"{moved.max():.3e} A")
+    check(moved.max() > 1e-4, "fabflex fp32: the pocket did not move")
+    d = pose_dist(poses, poses32)
+    same = [i for i, (a, b) in enumerate(zip(poses, poses32))
+            if np.array_equal(a.pocket_residues, b.pocket_residues)]
+    dp = np.concatenate([np.linalg.norm(
+        poses[i].pocket_coords - poses32[i].pocket_coords, axis=-1)
+        for i in same]) if same else np.zeros(1)
+    print(f"fabflex bf16 vs fp32, {len(d)} atoms: ligand per-atom distance "
+          f"mean {d.mean():.3f} A, max {d.max():.3f} A; pocket per-residue "
+          f"distance over the {len(same)} requests with the same crop: mean "
+          f"{dp.mean():.3f} A, max {dp.max():.3f} A (printed, not gated)")
+    del engine32
+    torch.cuda.empty_cache()
+
+    # one recycle: the ligand does not see the moved pocket, so fabflex
+    # docks the rigid engine's ligand
+    one = {name: DockingEngine(preset(name, **SMOKE_SHAPES, n_iter=1),
+                               buckets=buckets, batch_size=BATCH, bf16=False,
+                               seed=0).dock_raw(raws)
+           for name in ("fabflex", "fabind")}
+    d = pose_dist(one["fabflex"], one["fabind"])
+    print(f"n_iter=1 fp32, fabflex vs fabind ligand, {len(d)} atoms: max "
+          f"per-atom distance {d.max():.3e} A (limit 1e-5 A)")
+    check(d.max() <= 1e-5, f"n_iter=1 ligands differ by {d.max()} A")
+    check(one["fabind"][0].pocket_coords is None,
+          "a rigid engine's pose carries no pocket")
+    del one
+    torch.cuda.empty_cache()
+
+    # the artifact exported beside phases 7-12, served on the card
+    art = FLEX_ROOT / "artifact"
+    finish_export(proc, FLEX_ROOT / "export.log",
+                  "fabflex bf16 small bucket (cuda, own process)", card_line)
+    with open(art / "manifest.json") as f:
+        man = json.load(f)
+    check(man["flexible"] and man["outputs"][2:5] == [
+        "pocket_coords", "pocket_residues", "pocket_mask"],
+        f"fabflex manifest {man['flexible']} {man['outputs']}")
+    exported = load_exported(art, "fabflex bf16", card_line)
+    idx = [i for i, r in enumerate(raws)
+           if any(r is q for q in by_bucket[small_label])]
+    rs = [raws[i] for i in idx]
+    got, counter, _, _ = serve_main_path(exported, rs,
+                                         "exported fabflex bf16")
+    launches["exported "] = {torch.bfloat16: counter.launches}
+    want = [poses[i] for i in idx]
+    check_pockets(got, rs, "exported fabflex bf16")
+    check(pose_dist(got, want).max() == 0.0 and same_pockets(got, want)
+          and all(p.pocket_truncated == q.pocket_truncated
+                  for p, q in zip(got, want)),
+          "exported fabflex poses and pockets equal the live ones")
+    print(f"exported vs live fabflex bf16, {len(rs)} requests of bucket "
+          f"{small_label}: poses, pockets and pocket_truncated equal bit "
+          f"for bit")
+    del exported
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    rc = cli_selftest.main(["--preset", "fabflex", "--bf16", "--train",
+                            "--prod", "--device", "cuda"])
+    check(rc == 0, f"cli.selftest --preset fabflex returned {rc}")
+    print(f"time cli.selftest --preset fabflex --bf16 --train --prod: "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    print(f"time phase 13 (flexible docking) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return launches
+
+
 def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
     per batch, for each path of `paths` ((name prefix, {dtype: {bucket:
     launches}}): serving, training, evaluation, dock_sdf, exported serving,
-    training and evaluation from the processed store) that ran in that
-    dtype, with its launch counts (its batches have the served shapes)."""
+    training and evaluation from the processed store, flexible docking)
+    that ran in that dtype, with its launch counts (its batches have the
+    served shapes)."""
     rows = []
     for dtype in DTYPES:
         tag = str(dtype)[6:]
@@ -3352,8 +3629,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     best_of_phase(raws, buckets, card_line)
 
-    # ---- 12's exports start here, in processes of their own, beside 7-11
+    # ---- 12's and 13's exports start here, in processes of their own,
+    # beside 7-11
     sampling_proc = start_sampling_export(buckets)
+    flex_proc = start_flex_export(buckets)
     try:
         # ---- 7. training
         torch.cuda.empty_cache()
@@ -3381,8 +3660,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         drop_exported, drop_live, gate_sampling = sampling_phase(
             raws, buckets, sampling_proc, card_line)
+
+        # ---- 13. flexible docking: live, the daemon, exported, selftest
+        torch.cuda.empty_cache()
+        flex_launches = flex_phase(raws, buckets, flex_proc, card_line)
     finally:
-        stop_processes([sampling_proc])
+        stop_processes([sampling_proc, flex_proc])
 
     # ---- 4b. kernel times
     rows = time_kernel_rows(
@@ -3392,7 +3675,9 @@ def main(argv=None) -> int:
          ("exported ", exported_launches),
          ("train store ", store_train_launches),
          ("evaluate store ", store_eval_launches),
-         ("exported sampling ", gate_sampling)],
+         ("exported sampling ", gate_sampling)]
+        + [(f"fabflex {path}", counts)
+           for path, counts in flex_launches.items()],
         sms, clock_hz, card_line)
     rows += dropout_rows(time_dropout(sampling_buckets, card_line), drop_err,
                          [("exported sampling ", drop_exported),

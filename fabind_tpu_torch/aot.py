@@ -19,7 +19,12 @@ Each program's signature is a flat tuple of the batch's tensors in the order
 no registered dataclass pytree, whose registration is a property of the
 process that made the artifact, not of the artifact. The main program
 returns (lig_coords [B,Nc,3], confidence [B], pocket_overflow [B]), the live
-engine's `model.inference_diag`. The sampling halves depend on the
+engine's `model.inference_diag`; for a flexible-docking config
+(`manifest["flexible"]`, preset "fabflex") it runs
+`model.inference_flexible_diag` and returns (lig_coords, confidence,
+pocket_coords [B,Np,3], pocket_residues [B,Np], pocket_mask [B,Np],
+overflow), the JAX package's order (`manifest["outputs"]`). The sampling
+halves depend on the
 manifest's `sampling_pocket_mode` (sample.py's functions, traced):
 
   - "stochastic": pocket (batch, seed, count) -> (compound_out,
@@ -76,6 +81,8 @@ from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
 MANIFEST = "manifest.json"
 _FORMAT_VERSION = 1
 _OUTPUTS = ("lig_coords", "confidence", "overflow")
+_OUTPUTS_FLEX = ("lig_coords", "confidence", "pocket_coords",
+                 "pocket_residues", "pocket_mask", "overflow")
 # the serving batch (`collate(..., n_valid=...)`): sample_valid present, the
 # isomorphism fields, which inference never reads, absent
 BATCH_FIELDS = tuple(f.name for f in dataclasses.fields(FABindBatch)
@@ -110,7 +117,8 @@ def batch_leaves(batch: FABindBatch) -> tuple:
 
 class _BucketProgram(nn.Module):
     """What one artifact runs: the flat batch in, inference_diag in the
-    bucket's shapes."""
+    bucket's shapes (inference_flexible_diag in the outputs' order of
+    _OUTPUTS_FLEX for a flexible-docking model)."""
 
     def __init__(self, model: nn.Module, shapes: ShapeConfig):
         super().__init__()
@@ -119,7 +127,11 @@ class _BucketProgram(nn.Module):
 
     def forward(self, *leaves):
         batch = FABindBatch(**dict(zip(BATCH_FIELDS, leaves)))
-        return self.model.inference_diag(batch, shapes=self.shapes)
+        if not self.model.cfg.flexible_docking:
+            return self.model.inference_diag(batch, shapes=self.shapes)
+        lig, pkt, idx, mask, conf, overflow = \
+            self.model.inference_flexible_diag(batch, shapes=self.shapes)
+        return lig, conf, pkt, idx, mask, overflow
 
 
 class _StochasticPocket(_BucketProgram):
@@ -251,6 +263,7 @@ def export_inference(cfg: FABindConfig, state_dict: Dict[str, torch.Tensor],
     if bf16:
         model = cast_module_bf16(model)
 
+    flexible = bool(cfg.model.flexible_docking)
     entries: List[Dict] = []
     inputs = None
     for cfg_b in sort_bucket_cfgs(cfg, buckets):
@@ -276,14 +289,14 @@ def export_inference(cfg: FABindConfig, state_dict: Dict[str, torch.Tensor],
         "buckets": entries,
         "batch_size": batch_size,
         "bf16": bf16,
-        "flexible": False,
+        "flexible": flexible,
         "post_optim_steps": post_optim_steps,
         "sampling": bool(sampling),
         "sampling_pocket_mode": (cfg.model.sampling_pocket_mode if sampling
                                  else None),
         "export_device": device.type,
         "inputs": inputs,
-        "outputs": list(_OUTPUTS),
+        "outputs": list(_OUTPUTS_FLEX if flexible else _OUTPUTS),
     }
     with open(os.path.join(out_dir, MANIFEST), "w") as f:
         json.dump(manifest, f, indent=1)
@@ -312,8 +325,8 @@ def read_manifest(path: str) -> Dict:
 class ExportedInference:
     """A loaded artifact directory on `device` (default cuda; the programs
     are moved there when they were exported elsewhere): one callable per
-    bucket config with the engine's batch -> (coords, confidence,
-    pocket_overflow) contract, and with sampling programs each bucket's
+    bucket config with the engine's run_batch contract (batch -> the
+    manifest's outputs), and with sampling programs each bucket's
     `sampling_halves`. One program call runs at a time: a program's module
     is not documented as safe to call from several threads."""
 
@@ -325,6 +338,7 @@ class ExportedInference:
         self.batch_size = int(m["batch_size"])
         self.bf16 = bool(m["bf16"])
         self.post_optim_steps = int(m["post_optim_steps"])
+        self.flexible = bool(m["flexible"])
         self.sampling = bool(m.get("sampling", False))
         self.sampling_pocket_mode = m.get("sampling_pocket_mode")
         self.bucket_cfgs = [
@@ -390,7 +404,7 @@ class ExportedInference:
 
     def fn(self, cfg_b: FABindConfig):
         """The program of bucket cfg_b (identity-keyed, as the engine's
-        bucket configs are): batch -> (coords, confidence, overflow)."""
+        bucket configs are): batch -> the manifest's outputs."""
         return self._runner(cfg_b)
 
     def sampling_halves(self, cfg_b: FABindConfig):

@@ -20,7 +20,9 @@ Index CSV columns: Cleaned_SMILES (or smiles), pdb_file (or pdb, pdb_id),
 and optionally ligand_id. With --ligand-sdf-dir the ligand of a row is
 DIR/{id}/{id}_ligand.sdf or DIR/{id}.sdf, id = ligand_id or the pdb name.
 The output directory gets one SDF per docked row and index.csv (pdb,
-smiles, sdf).
+smiles, sdf). With --preset fabflex each row also gets NAME_pocket.npz
+(`coords` [n_pocket, 3] of the docked pocket residues, `residues` their
+indices into the protein) and index.csv a `pocket` column naming it.
 """
 from __future__ import annotations
 
@@ -28,6 +30,8 @@ import argparse
 import csv
 import os
 import zlib
+
+import numpy as np
 
 
 def main(argv=None):
@@ -61,10 +65,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
-    if args.preset == "fabflex":
-        raise NotImplementedError(
-            "preset 'fabflex': the flexible-docking forward is not ported "
-            "yet (ROADMAP queue 1)")
     if args.write_mol2:
         raise SystemExit("--write-mol2 needs RDKit/openbabel, which the "
                          "port does not use")
@@ -128,12 +128,20 @@ def main(argv=None):
         write_sdf(sdf, pose.sdf_meta["symbols"], pose.coords,
                   pose.sdf_meta["bonds"], name=name,
                   charges=pose.sdf_meta["charges"])
-        index_rows.append({"pdb": meta["pdb"], "smiles": meta["smiles"],
-                           "sdf": sdf})
+        row = {"pdb": meta["pdb"], "smiles": meta["smiles"], "sdf": sdf}
+        if cfg.model.flexible_docking and pose.pocket_coords is not None:
+            # the docked pocket beside the pose
+            row["pocket"] = os.path.join(args.output, name + "_pocket.npz")
+            np.savez(row["pocket"], coords=pose.pocket_coords,
+                     residues=pose.pocket_residues)
+        index_rows.append(row)
     if n_skipped:
         print(f"skipped {n_skipped}/{len(rows)} complexes")
+    fields = ["pdb", "smiles", "sdf"]
+    if cfg.model.flexible_docking:
+        fields.append("pocket")
     with open(os.path.join(args.output, "index.csv"), "w", newline="") as f:
-        wtr = csv.DictWriter(f, fieldnames=["pdb", "smiles", "sdf"])
+        wtr = csv.DictWriter(f, fieldnames=fields)
         wtr.writeheader()
         wtr.writerows(index_rows)
     print(f"wrote {len(index_rows)} poses to {args.output}")

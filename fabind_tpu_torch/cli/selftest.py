@@ -6,7 +6,8 @@ Counterpart of fabind_tpu/cli/selftest.py. One command checks, on the card
 
   1. the device: its kind and count;
   2. a seeded model and its inference forward on tiny synthetic complexes
-     (finite coordinates of the right shape); on the card the base model's
+     (finite coordinates of the right shape, and for preset fabflex a
+     finite, non-empty docked pocket); on the card the base model's
      forward launches the edge-gate kernel, once per attention layer of
      each stage and recycle, and the line reports the launches;
   3. optionally (--train) one optimizer step (finite loss, a gradient,
@@ -102,14 +103,25 @@ def main(argv=None) -> int:
         model = model.to(device).eval()
         if args.bf16:
             model, batch = cast_module_bf16(model), cast_batch_bf16(batch)
+        flexible = cfg.model.flexible_docking
         before = edge_gate.KERNEL.launches
         with torch.inference_mode():
-            coords, _ = model.inference(batch)
+            if flexible:
+                coords, pocket, _, pkt_mask, _ = model.inference_flexible(
+                    batch)
+            else:
+                coords, _ = model.inference(batch)
         coords = coords.float().cpu().numpy()
         launches = edge_gate.KERNEL.launches - before
         _require(coords.shape == (batch_size, cfg.shapes.max_ligand, 3),
                  coords.shape)
         _require(np.isfinite(coords).all(), "non-finite coordinates")
+        if flexible:
+            pocket = pocket.float().cpu().numpy()
+            _require(pocket.shape == (batch_size, cfg.shapes.max_pocket, 3),
+                     pocket.shape)
+            _require(np.isfinite(pocket).all() and bool(pkt_mask.any()),
+                     "non-finite or empty docked pocket")
         if device.type == "cuda":
             want = gate_launches_per_forward(cfg)
             _require(launches == want,

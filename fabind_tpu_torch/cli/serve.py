@@ -83,11 +83,6 @@ def main(argv=None):
                              f"drop {', '.join(baked)} (re-export to change "
                              f"them)")
 
-    if args.preset == "fabflex":
-        raise NotImplementedError(
-            "preset 'fabflex': the flexible-docking forward is not ported "
-            "yet (ROADMAP queue 1)")
-
     from fabind_tpu_torch.config import parse_overrides, preset
     from fabind_tpu_torch.data.buckets import resolve_buckets
     from fabind_tpu_torch.serve import DockingEngine

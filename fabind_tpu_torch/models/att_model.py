@@ -2,12 +2,14 @@
 
 Counterpart of fabind_tpu/models/att_model.py: `n_iter` recycles, the first
 n_iter - 1 without gradient and the last with it; only the movable nodes
-(glb_c, ligand, glb_p) carry coordinate updates across rounds. A stochastic
-forward (inside `layers.dropout_rng`: sampling passes and the training
-forward) with cfg.random_n_iter runs a count drawn uniformly from 1..n_iter,
-as the JAX package's non-deterministic forward does; its rounds without
-gradient keep dropout on. The explicit pair embedding is built once per
-forward from the entry node embeddings.
+(glb_c, ligand, glb_p) carry coordinate updates across rounds, or with
+`flexible` (FABFlex-style docking) every real node, so the pocket residues
+move with the ligand; the ligand's padding rows then keep their input. A
+stochastic forward (inside `layers.dropout_rng`: sampling passes and the
+training forward) with cfg.random_n_iter runs a count drawn uniformly from
+1..n_iter, as the JAX package's non-deterministic forward does; its rounds
+without gradient keep dropout on. The explicit pair embedding is built
+once per forward from the entry node embeddings.
 
 The count is known on the host (`layers.recycle_count` of the pass's seed
 and the loop's site), and a forward given it as an int runs exactly
@@ -44,7 +46,8 @@ Tensor = torch.Tensor
 class EfficientMCAttModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, embed_size: int, hidden_size: int,
-                 n_layers: int, n_iter: int, ctx_k: int):
+                 n_layers: int, n_iter: int, ctx_k: int,
+                 flexible: bool = False):
         super().__init__()
         if (cfg.ablation_no_attention or cfg.ablation_no_attention_with_cross_attn
                 or cfg.keep_trig_attn or not cfg.explicit_pair_embed):
@@ -54,6 +57,7 @@ class EfficientMCAttModel(nn.Module):
         self.cfg = cfg
         self.n_iter = n_iter
         self.ctx_k = ctx_k
+        self.flexible = flexible
         self.site = 0           # the recycle count's draw (assign_sites)
         self.gnn = MCAttEGNN(cfg, embed_size, hidden_size, hidden_size,
                              n_layers)
@@ -67,8 +71,17 @@ class EfficientMCAttModel(nn.Module):
         h_out, z, pair_out = self.gnn(
             h, x, gi, pair_embed, pair_mask, cfg.normalize(cfg.intra_cutoff),
             cfg.normalize(cfg.inter_cutoff), ctx_k)
-        movable = gi.layout.movable(x.device)[None, :, None]
-        return h_out, torch.where(movable, z, x), pair_out
+        return h_out, self._carry(gi, z, x), pair_out
+
+    def _carry(self, gi: GraphInputs, z: Tensor, x: Tensor) -> Tensor:
+        """The coordinates a round hands on: the stack's update `z` on the
+        nodes that move (every real node of each sample when flexible, else
+        the layout's glb_c, ligand and glb_p slots), `x` elsewhere."""
+        if self.flexible:
+            movable = gi.node_mask()[..., None]
+        else:
+            movable = gi.layout.movable(x.device)[None, :, None]
+        return torch.where(movable, z, x)
 
     def draw_count(self) -> int:
         """The recycle count of this loop in the current forward: drawn
@@ -149,8 +162,7 @@ class EfficientMCAttModel(nn.Module):
                     (h, x, g, pair_embed, pair_mask,
                      cfg.normalize(cfg.intra_cutoff),
                      cfg.normalize(cfg.inter_cutoff), ctx_k))
-            movable = g.layout.movable(x.device)[None, :, None]
-            return i + 1, torch.where(movable, z, x)
+            return i + 1, self._carry(g, z, x)
 
         return while_loop_op(cond, body, (torch.zeros_like(count), x),
                              extra)[1]

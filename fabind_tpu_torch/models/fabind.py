@@ -60,17 +60,18 @@ class FABindOutput:
     pocket_radius_pred: Tensor  # [B] FABind+ radius head (zeros for base)
     confidence: Tensor         # [B] FABind+ confidence head (zeros otherwise)
     pocket_coords: Tensor      # [B, Np, 3] docked pocket residues (protein-
-    #                            mean frame; the crop's coordinates, rigid)
+    #                            mean frame): moved with the ligand under
+    #                            cfg.flexible_docking, else the input crop
 
 
 class FABind(nn.Module):
 
     def __init__(self, cfg: ModelConfig, shapes: ShapeConfig):
         super().__init__()
-        if cfg.flexible_docking or cfg.opm or cfg.rel_dis_pair_bias != "none":
+        if cfg.opm or cfg.rel_dis_pair_bias != "none":
             raise NotImplementedError(
-                "flexible docking, the outer-product pair embedding and the "
-                "distance-pair bias are ported in later slices")
+                "the outer-product pair embedding and the distance-pair bias "
+                "are ported in later slices")
         self.cfg = cfg
         self.shapes = shapes
         C, Cp = cfg.hidden_size, cfg.pocket_pred_hidden_size
@@ -83,8 +84,10 @@ class FABind(nn.Module):
         self.pocket_pred_model = EfficientMCAttModel(
             cfg, Cp, Cp, cfg.pocket_pred_layers, cfg.pocket_pred_n_iter,
             shapes.ctx_k_whole)
+        # only docking is flexible: the pocket stage's protein stays rigid
         self.complex_model = EfficientMCAttModel(
-            cfg, C, C, cfg.mean_layers, cfg.n_iter, shapes.ctx_k)
+            cfg, C, C, cfg.mean_layers, cfg.n_iter, shapes.ctx_k,
+            flexible=cfg.flexible_docking)
         if cfg.is_plus:
             s = cfg.mlp_hidden_scale
 
@@ -356,8 +359,8 @@ class FABind(nn.Module):
         dis_map = dis_map * pair_valid
 
         coords = cfg.unnormalize(coords_n)
-        # the docked pocket residues, as the docking model returns them (the
-        # input crop: the pocket is rigid)
+        # the docked pocket residues, as the docking model returns them
+        # (the input crop unless cfg.flexible_docking moved them)
         pocket_coords = cfg.unnormalize(x_out[:, layout.pkt_slice])
         if cfg.is_plus:
             coords = coords + bias[:, None]
@@ -392,6 +395,36 @@ class FABind(nn.Module):
         EfficientMCAttModel.draw_count). Returns (coords [B,Nc,3],
         confidence [B] (zeros without a confidence head), pocket_overflow
         [B])."""
+        coords, _, _, _, confidence, overflow = self.inference_flexible_diag(
+            batch, center_override, shapes, pocket, pocket_count, count)
+        return coords, confidence, overflow
+
+    def inference(self, batch: FABindBatch,
+                  center_override: Optional[Tensor] = None):
+        """Predicted-pocket inference: (coords [B,Nc,3], confidence [B])."""
+        coords, confidence, _ = self.inference_diag(batch, center_override)
+        return coords, confidence
+
+    def inference_flexible(self, batch: FABindBatch,
+                           center_override: Optional[Tensor] = None,
+                           shapes: Optional[ShapeConfig] = None):
+        """`inference` that also returns the docked pocket conformation,
+        the FABFlex-style flexible-docking output: with
+        cfg.flexible_docking the pocket residues move with the ligand
+        across recycles, rigid configs return the input crop. Returns
+        (lig_coords [B,Nc,3], pocket_coords [B,Np,3], pkt_idx [B,Np],
+        pkt_mask [B,Np], confidence [B])."""
+        return self.inference_flexible_diag(batch, center_override,
+                                            shapes)[:5]
+
+    def inference_flexible_diag(self, batch: FABindBatch,
+                                center_override: Optional[Tensor] = None,
+                                shapes: Optional[ShapeConfig] = None,
+                                pocket: Optional[PocketOut] = None,
+                                pocket_count=None, count=None):
+        """`inference_flexible` + pocket_overflow [B], with inference_diag's
+        arguments: (lig_coords, pocket_coords, pkt_idx, pkt_mask,
+        confidence, pocket_overflow)."""
         cfg = self.cfg
         shapes = shapes or self.shapes
         if pocket is None:
@@ -406,13 +439,7 @@ class FABind(nn.Module):
             center, batch, shapes, self._crop_radius(radius_pred))
         out = self._dock(batch, compound_out, protein_out, idx, mask, True,
                          shapes.ctx_k, count)
-        return out[0], out[5], overflow
-
-    def inference(self, batch: FABindBatch,
-                  center_override: Optional[Tensor] = None):
-        """Predicted-pocket inference: (coords [B,Nc,3], confidence [B])."""
-        coords, confidence, _ = self.inference_diag(batch, center_override)
-        return coords, confidence
+        return out[0], out[7], idx, mask, out[5], overflow
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> None:

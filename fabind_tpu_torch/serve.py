@@ -16,6 +16,9 @@ come back in the world frame of the input structure.
   once per bucket.
 - FABind+ presets serve the same way; `dock_best_of` runs best-of-N
   sampling (sample.py) and keeps each request's most confident pose.
+- Preset "fabflex" (flexible docking) serves the same way too; its Poses
+  also carry the docked pocket: the moved pocket residues' coordinates
+  and their indices into the protein.
 - `DockingEngine.from_exported(dir)` serves the per-bucket programs of an
   artifact directory (aot.py, cli/export.py) without building the model;
   `dock_best_of` too when the artifact holds the sampling programs
@@ -83,6 +86,10 @@ class Pose:
 
     coords: np.ndarray                 # [n_atoms, 3] float32
     confidence: float                  # FABind+ confidence head (0.0 for base)
+    pocket_coords: Optional[np.ndarray] = None    # [n_pocket, 3] float32
+    pocket_residues: Optional[np.ndarray] = None  # [n_pocket] residue
+    #                                    indices; both set by flexible
+    #                                    engines only (not dock_best_of)
     error: Optional[str] = None        # set when the request was skipped
     sdf_meta: Optional[Dict] = None    # symbols/bonds/charges (dock_sdf),
     #                                    what featurize.write_sdf needs
@@ -107,9 +114,9 @@ class DockingEngine:
     device.
 
     Args:
-      cfg: FABindConfig (`preset("fabind")`, `"fabind_plus"` or
-        `"fabind_plus_sampling"`); cfg.shapes is the largest accepted
-        complex size.
+      cfg: FABindConfig (`preset("fabind")`, `"fabind_plus"`,
+        `"fabind_plus_sampling"` or `"fabflex"`); cfg.shapes is the
+        largest accepted complex size.
       state_dict: port state dict (`train.convert.state_dict_from_flax` or
         `load_torch_checkpoint`), loaded with strict=True. None draws seeded
         random weights from `seed`.
@@ -309,14 +316,21 @@ class DockingEngine:
     def run_batch(self, batch: FABindBatch, cfg_b: FABindConfig):
         """(coords [B,Nc,3], confidence [B], pocket_overflow [B]) for one
         batch of bucket cfg_b, on the device and not waited for;
-        post-optimized when post_optim_steps > 0."""
+        post-optimized when post_optim_steps > 0. A flexible config also
+        returns the docked pocket, in an exported program's order: (coords,
+        confidence, pocket_coords [B,Np,3], pkt_idx [B,Np], pkt_mask
+        [B,Np], pocket_overflow)."""
         with torch.inference_mode():
-            if self._exported is None:
-                coords, conf, overflow = self.model.inference_diag(
-                    batch, shapes=cfg_b.shapes)
+            if self._exported is not None:
+                out = self._exported.fn(cfg_b)(batch)
+            elif cfg_b.model.flexible_docking:
+                coords, pkt, idx, mask, conf, overflow = \
+                    self.model.inference_flexible_diag(batch,
+                                                       shapes=cfg_b.shapes)
+                out = (coords, conf, pkt, idx, mask, overflow)
             else:
-                coords, conf, overflow = self._exported.fn(cfg_b)(batch)
-        return self._post_optimize(coords, batch), conf, overflow
+                out = self.model.inference_diag(batch, shapes=cfg_b.shapes)
+        return (self._post_optimize(out[0], batch), *out[1:])
 
     def _best_of_batch(self, batch: FABindBatch, cfg_b: FABindConfig,
                       sample_size: int, seed: int, batch_idx: int):
@@ -351,17 +365,28 @@ class DockingEngine:
     @staticmethod
     def _collect(inflight, results: List[Optional[Pose]]) -> None:
         """Copy launched batches back in order and unpack per-request
-        Poses (float32: numpy has no bf16)."""
+        Poses (float32: numpy has no bf16), with the docked pocket's real
+        rows when a batch's output holds one (run_batch)."""
         for chunk, n_real, out in inflight:
             lig, conf = (t.float().cpu().numpy() for t in out[:2])
-            overflow = out[2].cpu().numpy()
+            overflow = out[-1].cpu().numpy()
+            pocket = None
+            if len(out) == 6:
+                pkt = out[2].float().cpu().numpy()
+                idx, mask = (t.cpu().numpy() for t in out[3:5])
+                pocket = pkt, idx, mask
             for b in range(n_real):
                 pos, s = chunk[b]
                 n = s["lig_feat"].shape[0]
-                results[pos] = Pose(
-                    coords=lig[b, :n] + s["coord_offset"],
-                    confidence=float(conf[b]),
-                    pocket_truncated=int(overflow[b]))
+                off = s["coord_offset"]
+                pose = Pose(coords=lig[b, :n] + off,
+                            confidence=float(conf[b]),
+                            pocket_truncated=int(overflow[b]))
+                if pocket is not None:
+                    pkt, idx, mask = pocket
+                    pose.pocket_coords = pkt[b][mask[b]] + off
+                    pose.pocket_residues = idx[b][mask[b]]
+                results[pos] = pose
 
     # ------------------------------------------------------------- serving
     def warmup(self) -> float:

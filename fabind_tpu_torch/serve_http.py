@@ -12,7 +12,9 @@ Endpoints:
                      r0_protein_xyz, r0_esm_feat); un-prefixed arrays are
                      shared by every request. Response: a JSON list of
                      {coords, confidence, error[, pocket_truncated]} in
-                     request order.
+                     request order; a flexible-docking engine (preset
+                     fabflex) adds pocket_coords [[x, y, z], ...] and
+                     pocket_residues (indices into the protein).
   POST /screen    -> body: .npz bytes; one protein under "protein_xyz" and
                      "esm_feat", the ligands under "r{i}_" prefixes. Same
                      response.
@@ -101,6 +103,9 @@ def _poses_json(poses) -> bytes:
             # the predicted crop outgrew the bucket's Np: the caller may
             # re-dock with a larger bucket
             d["pocket_truncated"] = int(p.pocket_truncated)
+        if p.pocket_coords is not None:   # flexible-docking engines
+            d["pocket_coords"] = _finite_list(p.pocket_coords)
+            d["pocket_residues"] = np.asarray(p.pocket_residues).tolist()
         if p.sdf_meta is not None and np.isfinite(p.coords).all():
             # /dock_sdf: the docked pose as molfile text, ready to save
             d["sdf"] = sdf_string(p.sdf_meta["symbols"], p.coords,

@@ -145,8 +145,19 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
             huber(out.pocket_radius_pred, batch.ligand_radius,
                   tcfg.pocket_coord_huber_delta))
 
+    # flexible docking: the docked pocket against the batch's pocket
+    # residues (holo self-consistency)
+    flex_pocket_loss = zero
+    if mcfg.flexible_docking:
+        gt_pkt = torch.gather(
+            batch.prot_xyz, 1,
+            out.pkt_idx.long()[..., None].expand(-1, -1, 3))
+        per = crit(out.pocket_coords, gt_pkt).mean(-1)
+        flex_pocket_loss = (tcfg.flex_pocket_coord_loss_weight
+                            * masked_mean(per, out.pkt_mask))
+
     total = (com_coord_loss + dismap_total + pocket_cls_loss
-             + pocket_coord_loss + radius_loss)
+             + pocket_coord_loss + radius_loss + flex_pocket_loss)
 
     coords = out.coords.detach()
     rmsd = geometry.rmsd(coords, batch.lig_coords, out.lig_mask)
@@ -161,7 +172,7 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
         "pocket_cls_loss": pocket_cls_loss,
         "pocket_coord_loss": pocket_coord_loss,
         "pocket_radius_loss": radius_loss,
-        "flex_pocket_coord_loss": zero,
+        "flex_pocket_coord_loss": flex_pocket_loss,
         "rmsd_mean": row_mean(rmsd),
         "rmsd_lt2": row_mean((rmsd < 2.0).float()),
         "rmsd_lt5": row_mean((rmsd < 5.0).float()),

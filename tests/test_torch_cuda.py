@@ -611,3 +611,46 @@ def test_sampling_artifact_from_cpu_on_card_matches_live(cuda, tmp_path):
         assert g.error is None and np.isfinite(g.coords).all()
         np.testing.assert_array_equal(g.coords, w.coords)
         assert g.confidence == w.confidence
+
+
+# ------------------------------------------------------ flexible docking
+def test_fabflex_engine_on_card(cuda):
+    """A bf16 fabflex engine (released depth: 4 layers x 8 recycles) over
+    the two toy buckets launches the gate 33 times per batch; every pose
+    carries a finite docked pocket, one residue index per coordinate row,
+    within the request's protein; the pocket moved in fp32, and the fp32
+    card pockets equal the CPU's within 1e-3 A."""
+    cfg = preset("fabflex", **ENGINE_KW)
+    small = dataclasses.replace(cfg.shapes, max_ligand=8, max_pocket=16,
+                                max_protein=32)
+    raws = _requests()
+    eng = DockingEngine(cfg, buckets=[small, cfg.shapes], batch_size=2,
+                        seed=0)
+    n_batches = len(list(eng.batches(raws, [None] * len(raws))))
+    edge_gate.KERNEL.launches = 0
+    poses = eng.dock_raw(raws)
+    assert edge_gate.KERNEL.launches == n_batches * LAUNCHES_PER_BATCH
+    for p, raw in zip(poses, raws):
+        if p.error is not None:
+            assert "exceeds every bucket" in p.error
+            continue
+        assert p.pocket_coords.dtype == np.float32
+        assert np.isfinite(p.pocket_coords).all()
+        assert len(p.pocket_coords) == len(p.pocket_residues) > 0
+        assert p.pocket_residues.max() < len(raw["protein_xyz"])
+
+    kw = dict(buckets=[small, cfg.shapes], batch_size=2, seed=0,
+              bf16=False)
+    card32 = DockingEngine(cfg, **kw).dock_raw(raws)
+    cpu32 = DockingEngine(cfg, device="cpu", **kw).dock_raw(raws)
+    moved = 0.0
+    for g, w, raw in zip(card32, cpu32, raws):
+        if w.error is not None:
+            continue
+        np.testing.assert_array_equal(g.pocket_residues, w.pocket_residues)
+        np.testing.assert_allclose(g.pocket_coords, w.pocket_coords,
+                                   atol=1e-3)
+        np.testing.assert_allclose(g.coords, w.coords, atol=1e-3)
+        moved = max(moved, float(np.abs(
+            g.pocket_coords - raw["protein_xyz"][g.pocket_residues]).max()))
+    assert moved > 1e-4

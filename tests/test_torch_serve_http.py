@@ -304,11 +304,16 @@ def test_cli_serve_fabind_plus_sampling(monkeypatch):
 def test_cli_serve_refuses_what_is_not_ported(monkeypatch):
     from fabind_tpu_torch.cli import serve as cs
 
-    _capture_serve(monkeypatch)
+    captured = _capture_serve(monkeypatch)
     with pytest.raises(SystemExit, match="requires --data"):
         cs.main(["--buckets", "auto", "--device", "cpu"] + _TINY_SET)
-    with pytest.raises(NotImplementedError, match="fabflex"):
-        cs.main(["--preset", "fabflex", "--device", "cpu"])
+    # fabflex is served: a flexible engine whose poses carry the pocket
+    cs.main(["--preset", "fabflex", "--device", "cpu"] + _TINY_SET)
+    eng = captured["engine"]
+    assert eng.cfg.model.flexible_docking and eng.bf16
+    (pose,) = eng.dock_raw([make_raw(n=5, nr=20, seed=1)])
+    assert pose.error is None
+    assert len(pose.pocket_coords) == len(pose.pocket_residues) > 0
     for flag in (["--dp", "2"], ["--exported", "x"]):
         with pytest.raises(SystemExit):
             cs.main(flag + ["--device", "cpu"] + _TINY_SET)
