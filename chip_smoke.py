@@ -166,7 +166,29 @@ Phases, each of which raises on failure (non-zero exit):
      --prod`. Times: batch latency per bucket and complexes/s in turns
      with a base engine of the same weights, the gate's ms per batch,
      bf16 vs fp32 ligand and pocket distances (printed, not gated),
-     export and load seconds, peak memory, the phase's wall time.
+     export and load seconds, peak memory, the phase's wall time;
+ 14. data parallelism, with two parts sharing the one card (cuda:0 twice:
+     the dp logic with the real kernels, not a dp speed, and no NCCL):
+     the row-mapped dropout kernel at each bucket's sampling shape (odd
+     elements per row) bit-equal to the unmapped global mask's rows and
+     to its plain version; cli.train's rank worker in two gloo ranks
+     (parallel.dp.launch; fabind fp32, TF32 off, global batch 8, two steps
+     at dropout 0 and two at 0.1) against one Trainer on the interleaved
+     rank batches: the ranks' metrics equal, losses within 1e-4, the
+     parameters after two updates within 2e-6 at the median and 2 x the
+     two updates' lr everywhere, gate launches per rank step 1 + 4 x the
+     drawn count, dropout launches per rank step the one-process step's
+     (all row-mapped); a two-replica DockingEngine (device=(cuda:0,
+     cuda:0)) over the 32 requests in bf16 and fp32, 33 gate launches per
+     replica block, fp32 poses within 1e-3 A of phase 3's (bf16 printed),
+     each replica's protein cache filled; best-of-8 with two replicas
+     over the small bucket's 8 requests (winners equal to one replica's
+     printed; replica 0's launches unmapped, replica 1's row-mapped); two
+     ESM2 replicas (2 of 33 layers) against one within 1e-3. Times: the
+     mapped kernel at the half batch beside the unmapped one, its plain
+     version, torch.rand + torch.where and its bound; one against two
+     replicas in turns (batch ms, dock_raw complexes/s), best-of-8
+     complexes/s, the ranks' launch seconds, the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -232,6 +254,8 @@ from fabind_tpu_torch.ops import dropout, edge_gate
 from fabind_tpu_torch.ops.cuda_build import build_all, find_nvcc
 from fabind_tpu_torch.ops.geometry import pairwise_dist
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
+from fabind_tpu_torch.parallel import dp
+from fabind_tpu_torch.parallel import steps as dp_steps
 from fabind_tpu_torch.postopt import configuration_loss
 from fabind_tpu_torch.sample import (dbscan_clusters, live_halves,
                                      pass_seed, recycle_counts, sample_poses,
@@ -242,6 +266,7 @@ from fabind_tpu_torch.train.checkpoints import (HEAD_PREFIXES,
                                                 TrainCheckpointer,
                                                 load_weights)
 from fabind_tpu_torch.train.confidence import METRIC_KEYS
+from fabind_tpu_torch.train.schedule import build_schedule
 from fabind_tpu_torch.train.trainer import (Trainer, eval_forward,
                                             step_generator)
 
@@ -395,6 +420,26 @@ SAMPLING_ROOT = Path("build/chip_smoke_sampling")
 FLEX_ROOT = Path("build/chip_smoke_flex")
 DROPOUT_REPLACES = ("fabind_tpu/models/layers.py:82 (flax nn.Dropout; no "
                     "TPU kernel)")
+# phase 14 (data parallelism): two ranks or two replicas share cuda:0 (the
+# machine has one card), so these check the dp logic with the real kernels
+# and measure no dp speed
+DP_ROOT = Path("build/chip_smoke_dp")
+DP_DEVICES = ("cuda:0", "cuda:0")
+DP_RATES = (0.0, 0.1)           # the two cli.train runs' dropout
+DP_GROUP_TIMEOUT_S = 300
+DP_JOIN_S = 600
+# two ranks vs one process after two AdamW updates (fp32, TF32 off): the
+# median parameter within the CPU tests' 2e-6; every parameter within
+# twice the two updates' learning rates (an Adam update moves an element
+# by at most ~lr, and an element whose gradient is near 0 may take the
+# other sign when the ranks' sums round otherwise)
+DP_PARAM_MEDIAN_ATOL = 2e-6
+DP_LOSS_RTOL = 1e-4
+# fp32 poses of two replicas vs one: a block of 4 rows is another product
+# shape than the batch of 8, so not bit for bit
+DP_POSE_MAX_A = 1e-3
+# best-of winners counted as the one-replica engine's (bf16, printed)
+DP_SAME_WINNER_A = 0.05
 
 
 def check(ok: bool, what: str) -> None:
@@ -1097,8 +1142,7 @@ def best_of_phase(raws, buckets, card_line):
                   f"largest of its {SAMPLES} scores {float(best[b])}")
             n_checked += 1
     check(n_checked == len(rs), "best-of-N: every request checked")
-    again = time_best_of(engine, rs, SAMPLES, "bf16 stochastic", card_line,
-                         calls=2)
+    again = time_best_of(engine, rs, SAMPLES, "bf16 stochastic", card_line)
     d = pose_dist(again, poses)
     check(d.max() == 0.0, f"best-of-N same seed: max distance {d.max()}")
     other = engine.dock_best_of(rs, sample_size=SAMPLES,
@@ -1129,8 +1173,7 @@ def best_of_phase(raws, buckets, card_line):
                                  **SMOKE_SHAPES),
                           buckets=buckets, batch_size=BATCH, seed=0)
     fixed.warmup()
-    poses_fixed = time_best_of(fixed, rs, SAMPLES, "bf16 fixed", card_line,
-                               calls=2)
+    poses_fixed = time_best_of(fixed, rs, SAMPLES, "bf16 fixed", card_line)
     check_poses(poses_fixed, rs, "best-of-N fixed pocket mode")
     del fixed
 
@@ -3267,7 +3310,7 @@ def gate_ms_per_batch(cfg) -> float:
     return total
 
 
-def time_in_turns(engines, by_bucket, raws, what, card_line, rounds=6):
+def time_in_turns(engines, by_bucket, raws, what, card_line, rounds=4):
     """Batch latency per bucket and dock_raw complexes/s of two engines
     timed in turns (A B, B A, ...), so that the host's drift falls on
     both: {name: ({label: median ms}, complexes/s)}."""
@@ -3444,6 +3487,304 @@ def flex_phase(raws, buckets, proc, card_line):
     print(f"time phase 13 (flexible docking) wall: "
           f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
     return launches
+
+
+def dp_mapped_dropout_checks(sampling_buckets, card_line) -> dict:
+    """Phase 14: the row-mapped dropout kernel at each bucket's sampling
+    shape (R = 162 or 210 x 33 x 1025 elements per row, odd), in fp32 and
+    bf16: a half batch mapped as a training rank's strided rows (2, r) or a
+    replica's block (1, B / 2) equals the unmapped kernel's global mask at
+    those rows bit for bit, and its plain version; then its times at the
+    half batch beside the unmapped kernel's, its plain version's, torch.rand
+    + torch.where and its bound. Returns {(dtype, label): (mapped ms,
+    unmapped ms, plain ms, bound ms, yardstick ms)}."""
+    out = {}
+    for label, c in sampling_buckets.items():
+        shape = dropout_shape(c)
+        half = BATCH // 2
+        for dtype in DTYPES:
+            x, seed, rnd = dropout_inputs(shape, dtype, seed=3)
+            full = dropout.dropout(x, seed, rnd, 7, 1, 0.1)
+            for mul, add, rows in ((2, 0, slice(0, None, 2)),
+                                   (2, 1, slice(1, None, 2)),
+                                   (1, half, slice(half, None))):
+                part = x[rows].contiguous()
+                got = dropout.dropout(part, seed, rnd, 7, 1, 0.1, mul, add)
+                check(torch.equal(got, full[rows]),
+                      f"mapped dropout ({mul}, {add}) {shape} {dtype}: not "
+                      f"the global mask's rows")
+                if (mul, add) == (2, 1):
+                    want = dropout.dropout_reference(part, seed, rnd, 7, 1,
+                                                     0.1, mul, add)
+                    check(torch.equal(got, want),
+                          f"mapped dropout {shape} {dtype}: kernel != plain")
+            print(f"dp dropout {list(shape)} {str(dtype)[6:]}: row-mapped "
+                  f"halves (2, 0), (2, 1), (1, {half}) == the global mask's "
+                  f"rows bit for bit, (2, 1) == plain")
+            part = x[1::2].contiguous()
+            g = torch.Generator(part.device).manual_seed(0)
+            m_ms = cuda_time_ms(lambda: dropout.dropout(part, seed, rnd, 7, 1,
+                                                        0.1, 2, 1))
+            u_ms = cuda_time_ms(lambda: dropout.dropout(part, seed, rnd, 7, 1,
+                                                        0.1))
+            p_ms = cuda_time_ms(lambda: dropout.dropout_reference(
+                part, seed, rnd, 7, 1, 0.1, 2, 1), iters=3, warmup=1)
+            y_ms = cuda_time_ms(lambda: torch.where(
+                torch.rand(part.shape, generator=g, device=part.device)
+                >= 0.1, part / 0.9, 0.0))
+            b_ms = 2 * part.numel() * part.element_size() / PEAK_BYTES_S * 1e3
+            out[(dtype, label)] = (m_ms, u_ms, p_ms, b_ms, y_ms)
+            print(f"time dp dropout half batch {[half, *shape[1:]]} "
+                  f"{str(dtype)[6:]} (bucket {label}): row-mapped kernel "
+                  f"{m_ms:.4f} ms, unmapped kernel {u_ms:.4f} ms, plain "
+                  f"{p_ms:.4f} ms, bound {b_ms:.4f} ms, torch.rand + "
+                  f"torch.where {y_ms:.4f} ms [{card_line}]")
+            del x, full, part
+    return out
+
+
+def dp_train_checks(raws, card_line) -> dict:
+    """Phase 14, training: two gloo ranks on cuda:0 (parallel.dp.launch of
+    cli.train's rank worker, `--dp 2`, preset fabind at full width, fp32,
+    TF32 off, global batch 8, one bucket) run two steps at dropout 0, then
+    two at 0.1, against one process's Trainer on the same global batches
+    (the ranks' Loader(host_shard) batches interleaved). Checks per run:
+    the ranks report the same metrics; each rank launches the gate 1 + 4 x
+    the step's drawn recycle count; each rank launches dropout as often as
+    the one-process step does (its sites and drawn counts), every launch
+    row-mapped; the losses within DP_LOSS_RTOL; the parameters after both
+    updates (rank 0's checkpoint) within DP_PARAM_MEDIAN_ATOL at the median
+    and 2 x (lr_0 + lr_1) everywhere. Returns the launches by kernel path:
+    {"gate": n, "dropout_rows": n} summed over ranks and runs."""
+    t0 = time.perf_counter()
+    # 2 x BATCH train requests, two global batches: the NPZ source trains
+    # on the first 90% by name (18 requests for BATCH 8: 16 train, 2 valid)
+    data = write_npz_dir(raws[:-(-20 * BATCH // 9)], DP_ROOT / "data")
+    src, names = open_source(data)
+    train = names[:int(0.9 * len(names))]
+    argvs, cfgs = [], []
+    for rate in DP_RATES:
+        out = DP_ROOT / f"run_dropout{rate}"
+        shutil.rmtree(out, ignore_errors=True)
+        argv = ["--preset", "fabind", "--data", data, "--output", str(out),
+                "--epochs", "1", "--batch-size", str(BATCH), "--buckets",
+                "none", "--workers", "4", "--prefetch", "2", "--eval-every",
+                "0", "--keep", "1", "--dp", "2", "--set", f"dropout={rate}"]
+        for k, v in SMOKE_SHAPES.items():
+            argv += ["--set", f"{k}={v}"]
+        argvs.append(argv)
+        cfgs.append(preset("fabind", **SMOKE_SHAPES, dropout=rate,
+                           total_epochs=1, batch_size=BATCH, remat=False))
+    t_launch = time.perf_counter()
+    runs = dp.launch(dp_steps.cli_train_runs, (argvs,), DP_DEVICES,
+                     backend="gloo", timeout=DP_JOIN_S,
+                     group_timeout=DP_GROUP_TIMEOUT_S)
+    launch_s = time.perf_counter() - t_launch
+    totals = {"gate": 0, "dropout_rows": 0}
+    for i, (rate, cfg) in enumerate(zip(DP_RATES, cfgs)):
+        r0, r1 = runs[0][i], runs[1][i]
+        check(len(r0) == len(r1) == 2, f"dp train dropout {rate}: steps "
+              f"{len(r0)}, {len(r1)}")
+        check([s["metrics"] for s in r0] == [s["metrics"] for s in r1],
+              f"dp train dropout {rate}: the ranks' metrics differ")
+        parts = [list(Loader(src, train, cfg, group="train",
+                             batch_size=BATCH // 2, seed=cfg.train.seed,
+                             workers=4, host_shard=(r, 2)).epoch(0))
+                 for r in range(2)]
+        one = Trainer(cfg, DP_DEVICES[0])
+        sched = build_schedule(cfg.train)
+        for step, (a, b) in enumerate(zip(*parts)):
+            before = dropout.KERNEL.launches
+            m = one.train_step(FABindBatch.from_numpy(
+                dp.interleave_rows([a, b]), DP_DEVICES[0]))
+            one_drop = dropout.KERNEL.launches - before
+            pc, dc = recycle_counts(cfg.model, step_generator(
+                cfg.train.seed, step, "cpu").initial_seed())
+            want_gate = (cfg.model.pocket_pred_layers * pc
+                         + cfg.model.mean_layers * dc)
+            for rank, s in enumerate((r0[step], r1[step])):
+                check(s["gate"] == want_gate, f"dp train dropout {rate} "
+                      f"rank {rank} step {step}: gate launches {s['gate']}, "
+                      f"expected {want_gate} (recycle count {dc})")
+                check(s["dropout"] == one_drop == s["dropout_rows"]
+                      if rate else s["dropout"] == one_drop == 0,
+                      f"dp train dropout {rate} rank {rank} step {step}: "
+                      f"dropout launches {s['dropout']} (row-mapped "
+                      f"{s['dropout_rows']}), one process {one_drop}")
+                totals["gate"] += s["gate"]
+                totals["dropout_rows"] += s["dropout_rows"]
+            got = r0[step]["metrics"]
+            rel = abs(got["loss"] - m["loss"]) / max(abs(m["loss"]), 1e-12)
+            print(f"dp train dropout {rate} step {step}: loss two ranks "
+                  f"{got['loss']:.6f}, one process {m['loss']:.6f} (rel "
+                  f"{rel:.2e}), grad_norm {got['grad_norm']:.4f} / "
+                  f"{m['grad_norm']:.4f}, stage 2 {got['use_stage2']}, "
+                  f"recycle count {dc}, gate launches per rank {want_gate}, "
+                  f"dropout launches per rank {r0[step]['dropout']} "
+                  f"(row-mapped {r0[step]['dropout_rows']})")
+            check(rel <= DP_LOSS_RTOL and got["skipped_nan"] == 0.0,
+                  f"dp train dropout {rate} step {step}: loss {got['loss']} "
+                  f"vs one process {m['loss']}")
+            check(got["use_stage2"] == m["use_stage2"],
+                  f"dp train dropout {rate} step {step}: stage gate")
+        state, _ = TrainCheckpointer(
+            str(DP_ROOT / f"run_dropout{rate}" / "ckpt")).restore()
+        diffs = torch.cat([(state["model"][n] - p.detach().cpu()).abs()
+                           .reshape(-1).float()
+                           for n, p in one.model.state_dict().items()])
+        bound = 2 * (sched(0) + sched(1))
+        med, mx = float(diffs.median()), float(diffs.max())
+        print(f"dp train dropout {rate}: parameters after 2 updates, two "
+              f"ranks vs one process: median |diff| {med:.3e} (limit "
+              f"{DP_PARAM_MEDIAN_ATOL}), max {mx:.3e} (limit {bound:.3e}), "
+              f"{int((diffs > DP_PARAM_MEDIAN_ATOL).sum())} of "
+              f"{diffs.numel()} above {DP_PARAM_MEDIAN_ATOL}")
+        check(med <= DP_PARAM_MEDIAN_ATOL and mx <= bound,
+              f"dp train dropout {rate}: parameters median {med}, max {mx}")
+        del one
+    torch.cuda.empty_cache()
+    print(f"time dp train: two gloo ranks sharing one card, {len(DP_RATES)} "
+          f"runs of 2 steps in one launch: {launch_s:.1f} s (spawn, "
+          f"featurize, build, steps); the phase's training part "
+          f"{time.perf_counter() - t0:.1f} s [{card_line}]")
+    return totals
+
+
+def dp_phase(raws, by_bucket, buckets, poses16, poses32, card_line):
+    """Phase 14: data parallelism on the one card: training ranks
+    (dp_train_checks), two serving replicas on cuda:0 in bf16 and fp32
+    against phase 3's one-replica poses and in turns with one replica,
+    best-of-8 with two replicas, two ESM2 replicas, and the row-mapped
+    dropout kernel. Returns (gate launches by path, dropout launches by
+    path, mapped-kernel times)."""
+    t_phase = time.perf_counter()
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    sampling_buckets = {bucket_label(s): preset(
+        "fabind_plus_sampling", **SMOKE_SHAPES).replace(shapes=s)
+        for s in buckets}
+    times = dp_mapped_dropout_checks(sampling_buckets, card_line)
+    train = dp_train_checks(raws, card_line)
+    large = bucket_label(buckets[-1])
+
+    # serving: two replicas on cuda:0, 33 gate launches per replica block
+    per_batch = len(DP_DEVICES) * sum(s[-1] for s in served_pair_shapes(cfg))
+    serve_counts, engines = {}, {}
+    for dtype, want in ((torch.bfloat16, poses16), (torch.float32, poses32)):
+        tag = str(dtype)[6:]
+        eng = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0,
+                            bf16=dtype == torch.bfloat16, device=DP_DEVICES)
+        eng.warmup()
+        got, counter, _, _ = serve_main_path(eng, raws, f"dp two-replica "
+                                             f"{tag}", per_batch=per_batch)
+        serve_counts[dtype] = counter.launches
+        d = pose_dist(got, want)
+        print(f"dp two replicas vs one, {tag}, {len(d)} atoms: per-atom "
+              f"distance mean {d.mean():.3e} A, max {d.max():.3e} A"
+              + (f" (max limit {DP_POSE_MAX_A} A)" if dtype == torch.float32
+                 else " (printed, not gated)"))
+        if dtype == torch.float32:
+            check(d.max() <= DP_POSE_MAX_A, f"dp fp32 poses max {d.max()}")
+        check(all(len(c) for c in eng._prot_rows),
+              "dp: each replica caches its protein rows")
+        engines[tag] = eng
+    del engines["float32"]
+    one = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    one.warmup()
+    time_in_turns({"one replica": one,
+                   "two replicas sharing one card": engines["bfloat16"]},
+                  by_bucket, raws, "dp bf16 (not a dp speed: both replicas "
+                  "on cuda:0)", card_line, rounds=2)
+    del one, engines
+    torch.cuda.empty_cache()
+
+    # best-of-8 over the small bucket's requests with two replicas
+    cfg_s = preset("fabind_plus_sampling", **SMOKE_SHAPES)
+    small = bucket_label(buckets[0])
+    rs = by_bucket[small][:BATCH]
+    one_s = DockingEngine(cfg_s, buckets=buckets, batch_size=BATCH, seed=0)
+    two_s = DockingEngine(cfg_s, buckets=buckets, batch_size=BATCH, seed=0,
+                          device=DP_DEVICES)
+    one_s.warmup()
+    two_s.warmup()
+    want = time_best_of(one_s, rs, SAMPLES, "dp one-replica bf16", card_line)
+    dropout.KERNEL.launches = 0
+    dropout.KERNEL.variants.clear()
+    got = time_best_of(two_s, rs, SAMPLES, "dp two-replica bf16 (both on "
+                       "cuda:0)", card_line)
+    best_of = {"dropout": dropout.KERNEL.launches
+               - dropout.KERNEL.variants.get("rows", 0),
+               "dropout_rows": dropout.KERNEL.variants.get("rows", 0)}
+    check_poses(got, rs, "dp best-of")
+    check(best_of["dropout"] == best_of["dropout_rows"] > 0,
+          f"dp best-of: replica 0 (unmapped) and replica 1 (row-mapped) "
+          f"dropout launches {best_of}")
+    same = [float(np.linalg.norm(a.coords - b.coords, axis=-1).max())
+            <= DP_SAME_WINNER_A for a, b in zip(got, want)]
+    d = pose_dist(got, want)
+    print(f"dp best-of-{SAMPLES} two replicas vs one (bf16): winners equal "
+          f"(max per-atom distance <= {DP_SAME_WINNER_A} A) {sum(same)} of "
+          f"{len(same)}; per-atom distance mean {d.mean():.3e} A, max "
+          f"{d.max():.3e} A; dropout launches unmapped {best_of['dropout']}, "
+          f"row-mapped {best_of['dropout_rows']}")
+    del one_s, two_s
+    torch.cuda.empty_cache()
+
+    # ESM2 t33 cut to 2 layers at full width: two replicas vs one
+    enc = seeded_encoder(Esm2Config(num_layers=ESM_CLI_LAYERS), ESM_SEED,
+                         torch.device(DP_DEVICES[0]))
+    rng = np.random.RandomState(ESM_SEED)
+    letters = sorted(set(THREE_TO_ONE.values()))
+    seqs = ["".join(rng.choice(letters, len(r["protein_xyz"])))
+            for r in raws[:8]]
+    t0 = time.perf_counter()
+    e1 = enc.embed_sequences(seqs, batch_size=ESM_BATCH // 2)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    e2 = enc.embed_sequences(seqs, batch_size=ESM_BATCH // 2,
+                             dp=list(DP_DEVICES))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(e1, e2))
+    check(all(a.shape == b.shape for a, b in zip(e1, e2)) and err
+          <= ESM_BATCH_ATOL, f"dp ESM2: two replicas vs one max {err}")
+    print(f"dp ESM2 ({ESM_CLI_LAYERS} of 33 layers, width 1280, fp32) two "
+          f"replicas vs one over {len(seqs)} sequences: max abs {err:.3e} "
+          f"(limit {ESM_BATCH_ATOL}); {t1 - t0:.3f} s one, {t2 - t1:.3f} s "
+          f"two on one card [{card_line}]")
+    del enc
+    torch.cuda.empty_cache()
+    print(f"time phase 14 (data parallelism, two parts sharing one card) "
+          f"wall: {time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    gate_paths = [("dp serve ", {d: c for d, c in serve_counts.items()}),
+                  ("dp train ", {torch.float32: {large: train["gate"]}})]
+    drop_paths = {"dropout_rows": [
+        ("dp train ", {torch.float32: {large: train["dropout_rows"]}}),
+        ("dp best-of ", {torch.bfloat16: {small: best_of["dropout_rows"]}})],
+        "dropout": [
+        ("dp best-of ", {torch.bfloat16: {small: best_of["dropout"]}})]}
+    return gate_paths, drop_paths, times
+
+
+def dp_dropout_rows(times, drop_paths) -> list:
+    """JSON rows of phase 14's dropout launches: the row-mapped kernel and
+    the unmapped one (replica 0's block) with their half-batch times."""
+    rows = []
+    for kernel, paths in drop_paths.items():
+        for path, counts in paths:
+            for dtype, by_bucket in counts.items():
+                for label, n in by_bucket.items():
+                    m_ms, u_ms, p_ms, b_ms, y_ms = times[(dtype, label)]
+                    rows.append({
+                        "name": f"{kernel} {path}{str(dtype)[6:]} bucket "
+                                f"{label}",
+                        "route": "cuda",
+                        "source": "fabind_tpu_torch/csrc/dropout.cu",
+                        "replaces": DROPOUT_REPLACES, "launches": n,
+                        "max_abs_err": 0.0,
+                        "ms": m_ms if kernel == "dropout_rows" else u_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms,
+                        "bound_by": "bytes", "library_ms": y_ms})
+    return rows
 
 
 def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
@@ -3667,6 +4008,11 @@ def main(argv=None) -> int:
     finally:
         stop_processes([sampling_proc, flex_proc])
 
+    # ---- 14. data parallelism: two ranks and two replicas on the card
+    torch.cuda.empty_cache()
+    dp_gate, dp_drop, dp_times = dp_phase(raws, by_bucket, buckets, poses,
+                                          poses32, card_line)
+
     # ---- 4b. kernel times
     rows = time_kernel_rows(
         served, max_err,
@@ -3677,11 +4023,12 @@ def main(argv=None) -> int:
          ("evaluate store ", store_eval_launches),
          ("exported sampling ", gate_sampling)]
         + [(f"fabflex {path}", counts)
-           for path, counts in flex_launches.items()],
+           for path, counts in flex_launches.items()] + dp_gate,
         sms, clock_hz, card_line)
     rows += dropout_rows(time_dropout(sampling_buckets, card_line), drop_err,
                          [("exported sampling ", drop_exported),
                           ("sampling ", drop_live)])
+    rows += dp_dropout_rows(dp_times, dp_drop)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")
     print(json.dumps({"kernels": rows}))

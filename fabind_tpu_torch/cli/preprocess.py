@@ -23,8 +23,10 @@ Own copy of fabind_tpu/cli/preprocess.py:
   store's protein_1d_3d.lmdb -> esm2_t33_650M_UR50D.lmdb, batched
   (reference tools/generate_esm2_t33.py:20-53).
 
-Not ported: --esm-dp (data-parallel embedding, ROADMAP queue 1, data
-parallelism) raises.
+`esm --esm-dp N` embeds over N replicas of the encoder (cards
+cuda:0..N-1, 0 = every visible card, or N CPU replicas with --device cpu),
+held for the run: each forward takes --esm-batch x N rows, --esm-batch on
+each replica (models.esm2.Esm2Model.embed_sequences).
 
 Usage:
   python -m fabind_tpu_torch.cli.preprocess inference --index pairs.csv \
@@ -35,9 +37,10 @@ Usage:
   python -m fabind_tpu_torch.cli.preprocess inject-iso --data ROOT \
       [--max-iso K]
   python -m fabind_tpu_torch.cli.preprocess esm --seqs seqs.fasta \
-      --out esm/ --esm-weights esm2_t33_650M_UR50D/ [--esm-batch 8]
+      --out esm/ --esm-weights esm2_t33_650M_UR50D/ [--esm-batch 8] \
+      [--esm-dp N]
   python -m fabind_tpu_torch.cli.preprocess esm --lmdb ROOT \
-      --esm-weights esm2_t33_650M_UR50D/ [--esm-batch 8]
+      --esm-weights esm2_t33_650M_UR50D/ [--esm-batch 8] [--esm-dp N]
 """
 from __future__ import annotations
 
@@ -199,11 +202,12 @@ _NUM_TO_LETTER = {4: "C", 3: "D", 15: "S", 5: "Q", 11: "K", 9: "I",
                   2: "N", 18: "Y", 12: "M"}
 
 
-def run_esm_lmdb_mode(args, model):
+def run_esm_lmdb_mode(args, model, replicas=None):
     """protein_1d_3d.lmdb -> esm2_t33_650M_UR50D.lmdb (the reference's
     tools/generate_esm2_t33.py:25-53), batched: the store's sequences in
-    key order, embedded in chunks of 4 forwards of --esm-batch, each
-    embedding pickled as a float32 numpy array."""
+    key order, embedded in chunks of 4 forwards of --esm-batch (on each of
+    the encoder's `replicas`), each embedding pickled as a float32 numpy
+    array."""
     from fabind_tpu_torch.data.featurize import extract_esm_features
     from fabind_tpu_torch.data.kv import open_kv
     p = os.path.join(args.lmdb, "dataset", "processed")
@@ -211,14 +215,16 @@ def run_esm_lmdb_mode(args, model):
     dst = open_kv(os.path.join(p, "esm2_t33_650M_UR50D.lmdb"),
                   readonly=False, map_size=1024 ** 4)
     n = 0
-    chunk_rows = args.esm_batch * 4
+    chunk_rows = args.esm_batch * (1 if replicas is None
+                                   else len(replicas)) * 4
     with src.begin(write=False) as txn, dst.begin(write=True) as out:
         pending = []
 
         def flush():
             nonlocal n
             embs = extract_esm_features([s for _, s in pending], model,
-                                        batch_size=args.esm_batch)
+                                        batch_size=args.esm_batch,
+                                        dp=replicas or 1)
             for (key, _), emb in zip(pending, embs):
                 out.put(key, pickle.dumps(emb))
                 n += 1
@@ -260,18 +266,23 @@ def run_esm_mode(args):
     """FASTA -> {name}.npy (or, with --lmdb, the store's ESM2 LMDB),
     `--esm-batch` sequences per forward."""
     from fabind_tpu_torch.data.featurize import extract_esm_features
-    if args.esm_dp != 1:
-        raise NotImplementedError(
-            "--esm-dp: data-parallel embedding is not ported yet (ROADMAP "
-            "queue 1, data parallelism)")
+    from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
     if not (args.lmdb or (args.seqs and args.out)):
         raise SystemExit("esm mode needs --seqs AND --out (or --lmdb)")
     model = _encoder(args)
-    if args.lmdb:
-        return run_esm_lmdb_mode(args, model)
-    entries = read_fasta(args.seqs)
-    embs = extract_esm_features([s for _, s in entries], model,
-                                batch_size=args.esm_batch)
+    replicas = None
+    if args.esm_dp != 1:
+        replicas = ReplicaSet(model, dp_devices(args.device, args.esm_dp))
+    try:
+        if args.lmdb:
+            return run_esm_lmdb_mode(args, model, replicas)
+        entries = read_fasta(args.seqs)
+        embs = extract_esm_features([s for _, s in entries], model,
+                                    batch_size=args.esm_batch,
+                                    dp=replicas or 1)
+    finally:
+        if replicas is not None:
+            replicas.close()
     os.makedirs(args.out, exist_ok=True)
     for (name, _), emb in zip(entries, embs):
         np.save(os.path.join(args.out, f"{name}.npy"), emb)
@@ -321,7 +332,9 @@ def main(argv=None):
     pe.add_argument("--esm-batch", type=int, default=8,
                     help="sequences per forward")
     pe.add_argument("--esm-dp", type=int, default=1,
-                    help="not ported yet (data parallelism)")
+                    help="encoder replicas, one per card (0 = every "
+                         "visible card); each forward takes --esm-batch "
+                         "rows on each")
 
     for sp in (pi, pe):
         sp.add_argument("--esm-weights", required=True, metavar="PATH",

@@ -14,8 +14,10 @@ runs `sample.sample_poses` (sample_size stochastic passes,
 float32); per complex the best RMSD and centroid distance among the top-N
 poses by confidence are summarized, as the reference benchmark does
 (N = 1). `--ckpt` takes what `checkpoints.load_weights` reads; a confidence
-head it lacks keeps its fresh init. `--dp` is not ported (ROADMAP queue 1,
-data parallelism).
+head it lacks keeps its fresh init. `--dp N` samples each batch over N
+replicas (cards cuda:0..N-1, 0 = every visible card, or N CPU replicas with
+`--device cpu`), each docking a contiguous block of batch-size / N rows
+(sample.sample_poses(replicas=)); the batch size must divide by N.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from fabind_tpu_torch.cli.common import load_model, resolve_device
 from fabind_tpu_torch.config import parse_overrides, preset
 from fabind_tpu_torch.data.dataset import Loader, open_source
 from fabind_tpu_torch.data.types import FABindBatch
+from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.sample import sample_poses
 from fabind_tpu_torch.utils.metrics import (centroid_distance, ligand_rmsd,
                                             summarize_rmsd, symmetric_rmsd)
@@ -58,7 +61,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--sample-size", type=int, default=40)
     p.add_argument("--batch-size", type=int, default=4)
     p.add_argument("--dp", type=int, default=1,
-                   help="data parallelism: not ported; only 1 is accepted")
+                   help="replicas each batch is split over (0 = every "
+                        "visible card); --batch-size must divide by it")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--pocket-mode", default=None,
                    choices=["stochastic", "fixed"],
@@ -86,15 +90,18 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """Sample; returns the metrics it prints (and writes to --out)."""
     args = parse_args(argv)
-    if args.dp != 1:
-        raise SystemExit("--dp: data-parallel sampling is not ported yet "
-                         "(ROADMAP queue 1); run with --dp 1")
     device = resolve_device(args.device, "cli.sample")
+    devices = ([device] if args.dp == 1
+               else dp_devices(args.device, args.dp))
+    if args.batch_size % len(devices):
+        raise SystemExit(f"--batch-size {args.batch_size} not divisible by "
+                         f"--dp {len(devices)}")
     overrides = parse_overrides(args.set)
     if args.pocket_mode:
         overrides["sampling_pocket_mode"] = args.pocket_mode
     cfg = preset(args.preset, **overrides)
     model = load_model(cfg, args.ckpt, device)
+    replicas = ReplicaSet(model, devices) if len(devices) > 1 else None
 
     source, indices = open_source(args.data, variant="fabind_plus",
                                   split=args.split,
@@ -106,8 +113,11 @@ def main(argv=None) -> dict:
     for bi, (arrays, meta) in enumerate(loader.epoch(0, with_meta=True)):
         nv = meta["n_valid"]
         batch = FABindBatch.from_numpy(arrays, device)
+        if replicas is not None:
+            batch = replicas.split(batch)
         coords, scores = sample_poses(model, batch, cfg, args.sample_size,
-                                      seed=args.seed, batch_idx=bi)
+                                      seed=args.seed, batch_idx=bi,
+                                      replicas=replicas)
         coords = coords.float().cpu().numpy()
         true = arrays["lig_coords"]
         mask = arrays["lig_mask"]

@@ -5,7 +5,7 @@ Usage:
   python -m fabind_tpu_torch.cli.serve \
       --preset fabind|fabind_plus|fabind_plus_sampling --ckpt best_model.bin \
       [--host 127.0.0.1] [--port 8400] [--batch-size 8] [--no-bf16] \
-      [--post-optim-steps N] [--warmup] \
+      [--post-optim-steps N] [--warmup] [--dp N] \
       [--buckets l:p:r,l:p:r | --buckets auto[:K] --data DATA] \
       [--set KEY=VALUE ...] [--device cuda|cpu] \
       [--esm-weights PATH] [--pdb-root DIR]
@@ -17,6 +17,10 @@ Usage:
       [--device cuda|cpu] [--warmup] [--esm-weights PATH] [--pdb-root DIR]
 
 Without --ckpt the engine serves seeded random weights (smoke tests only).
+--dp N serves one engine over N cards (cuda:0..N-1, 0 = every visible card;
+N CPU replicas with --device cpu): each batch's rows split into N blocks,
+one per replica (DockingEngine(dp=N)); --batch-size must divide by N. An
+artifact (--exported) serves on one device, and --dp refuses it.
 /dock_sdf needs --esm-weights (models.esm2.load_esm2: a local HuggingFace
 ESM2 directory or state dict) to embed its proteins.
 """
@@ -38,6 +42,8 @@ def main(argv=None):
     p.add_argument("--batch-size", type=int, default=8)
     p.add_argument("--no-bf16", action="store_true",
                    help="serve in fp32 instead of bf16")
+    p.add_argument("--dp", type=int, default=1,
+                   help="data-parallel serving over N devices")
     p.add_argument("--post-optim-steps", type=int, default=0)
     p.add_argument("--buckets", default=None,
                    help="explicit shape buckets 'lig:pocket:protein,...' "
@@ -74,6 +80,7 @@ def main(argv=None):
         baked = [n for n, v in [("--ckpt", args.ckpt),
                                 ("--buckets", args.buckets),
                                 ("--set", args.set or None),
+                                ("--dp", args.dp if args.dp != 1 else None),
                                 ("--no-bf16", args.no_bf16 or None),
                                 ("--post-optim-steps",
                                  args.post_optim_steps or None)]
@@ -120,7 +127,7 @@ def main(argv=None):
                            batch_size=args.batch_size,
                            bf16=not args.no_bf16,
                            post_optim_steps=args.post_optim_steps,
-                           device=args.device, esm=esm)
+                           device=args.device, esm=esm, dp=args.dp)
     _serve(engine, args)
 
 

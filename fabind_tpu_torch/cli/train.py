@@ -1,9 +1,9 @@
 """Training driver of the port.
 
-Counterpart of fabind_tpu/cli/train.py on one card:
+Counterpart of fabind_tpu/cli/train.py:
 
   python -m fabind_tpu_torch.cli.train --preset fabind --data DATA \\
-      --output runs/exp1 [--epochs N] [--batch-size B] [--bf16]
+      --output runs/exp1 [--epochs N] [--batch-size B] [--bf16] [--dp N]
 
 `--data` is the reference's processed PDBbind store (its train and valid
 splits under the preset's filters) or a directory of .npz samples (the
@@ -13,10 +13,24 @@ checkpoints under <output>/ckpt
 SIGINT it finishes the step in flight, checkpoints with the data-order
 position and exits 0. Runs on CUDA; `--device cpu` runs on the CPU.
 
-Not ported: `--dp` (data parallelism waits for DDP and the loader's
-multi-process sharding), `--wandb` (metrics go to metrics.jsonl and, when
-it imports, TensorBoard) and `--compile-cache` (nothing is compiled ahead of
-the first step but the CUDA kernels, which build into build/kernels).
+`--dp N` trains data-parallel over N cards (0, the default: every visible
+card; fewer than N raises): one spawned process per card
+(parallel.dp.launch, nccl; gloo on the CPU), each a Trainer rank with
+`host_shard=(rank, N)`. `--batch-size` stays the global batch and must
+divide by N; each rank loads and steps its B / N rows, and the step equals
+one process's on the global batch (train/trainer.py). Rank 0 writes the
+log, metrics.jsonl and the checkpoints; on `--resume` every rank reads the
+same checkpoint; every rank evaluates the whole validation set (no
+collective waits on one rank's evaluation) and rank 0 logs it. SIGTERM or
+SIGINT to the launcher reaches every rank; the flag is reduced (max) after
+each step, so all ranks stop after the same one, rank 0 checkpoints, and
+all exit 0. With one card the run takes the one-process path: no process
+group, no spawn. `--device cpu --dp N` runs N CPU ranks.
+
+Not ported: `--wandb` (metrics go to metrics.jsonl and, when it imports,
+TensorBoard), `--compile-cache` (nothing is compiled ahead of the first
+step but the CUDA kernels, which build into build/kernels) and a launch
+over several hosts.
 """
 from __future__ import annotations
 
@@ -33,6 +47,8 @@ from fabind_tpu_torch.config import parse_overrides, preset
 from fabind_tpu_torch.data.buckets import resolve_buckets
 from fabind_tpu_torch.data.dataset import Loader, NPZSource, open_source
 from fabind_tpu_torch.data.types import FABindBatch, to_device
+from fabind_tpu_torch.ops import dropout, edge_gate
+from fabind_tpu_torch.parallel.dp import DPGroup, dp_devices, launch
 from fabind_tpu_torch.train.checkpoints import TrainCheckpointer
 from fabind_tpu_torch.train.trainer import Trainer
 from fabind_tpu_torch.utils.logging_utils import Logger
@@ -65,6 +81,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(torch.utils.checkpoint): same gradients, less "
                         "activation memory, about one more forward of the "
                         "layers")
+    p.add_argument("--dp", type=int, default=0,
+                   help="data-parallel ranks, one per card (0 = every "
+                        "visible card); --batch-size is the global batch")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--eval-every", type=int, default=1,
                    help="evaluate (stages 1 and 2) every N epochs; 0 = never")
@@ -114,9 +133,56 @@ def to_batch(arrays, device, transfer_dtype: str) -> FABindBatch:
 def main(argv=None, on_step: Optional[Callable] = None) -> int:
     """Train. `on_step(step, metrics, meta)`, when given, is called after
     every step with the step count after it, the step's metrics (floats)
-    and the batch's loader meta (pdb names, n_valid, the bucket's cfg)."""
+    and the batch's loader meta (pdb names, n_valid, the bucket's cfg); with
+    more than one rank it is not called (the ranks are other processes)."""
     args = parse_args(argv)
-    device = resolve_device(args.device, "cli.train")
+    devices = dp_devices(args.device, args.dp)
+    if len(devices) == 1:
+        return run(args, resolve_device(str(devices[0]), "cli.train"),
+                   on_step)
+    launch(rank_main, (argv,), devices)
+    return 0
+
+
+def rank_main(rank: int, world: int, device, argv) -> list:
+    """One data-parallel rank of `cli.train argv` (the target
+    parallel.dp.launch runs): trains its share and returns its steps, each
+    {"step", "metrics", "n_valid", "gate", "dropout", "dropout_rows"} with
+    the kernel launches the step made in this process."""
+    args = parse_args(argv)
+    steps = []
+    last = {}
+
+    def record(step, metrics, meta):
+        now = {"gate": edge_gate.KERNEL.launches,
+               "dropout": dropout.KERNEL.launches,
+               "dropout_rows": dropout.KERNEL.variants.get("rows", 0)}
+        steps.append({"step": step, "metrics": metrics,
+                      "n_valid": meta["n_valid"],
+                      **{k: v - last.get(k, 0) for k, v in now.items()}})
+        last.update(now)
+
+    def start_counts():
+        last.update(gate=edge_gate.KERNEL.launches,
+                    dropout=dropout.KERNEL.launches,
+                    dropout_rows=dropout.KERNEL.variants.get("rows", 0))
+
+    start_counts()
+    rc = run(args, resolve_device(str(device), "cli.train"), record,
+             DPGroup(rank, world, device), on_eval=start_counts)
+    if rc != 0:
+        raise RuntimeError(f"rank {rank} returned {rc}")
+    return steps
+
+
+def run(args: argparse.Namespace, device, on_step: Optional[Callable],
+        group: Optional[DPGroup] = None,
+        on_eval: Optional[Callable] = None) -> int:
+    """The training run of `args` on `device`: one process, or with
+    `group` one data-parallel rank. `on_eval` is called after each
+    evaluation."""
+    world = 1 if group is None else group.world
+    lead = group is None or group.rank == 0
     overrides = parse_overrides(args.set)
     if args.epochs:
         overrides["total_epochs"] = args.epochs
@@ -128,8 +194,14 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
         overrides["bf16"] = True
     overrides.setdefault("remat", args.remat)
     cfg = preset(args.preset, **overrides)
+    if cfg.train.batch_size % world:
+        raise SystemExit(f"--batch-size {cfg.train.batch_size} is the "
+                         f"global batch and must divide by --dp {world}")
 
-    logger = Logger(args.output)
+    # rank 0 writes the log and metrics.jsonl; the other ranks log to
+    # stdout only
+    logger = (Logger(args.output) if lead
+              else Logger(name=f"fabind_tpu_torch.rank{group.rank}"))
     logger.log_message(f"device: {device}"
                        + (f" ({torch.cuda.get_device_name(device)})"
                           if device.type == "cuda" else ""))
@@ -147,14 +219,16 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
     if buckets is not None:
         logger.log_message("train buckets: " + str(
             [(s.max_ligand, s.max_pocket, s.max_protein) for s in buckets]))
-    train_loader = Loader(source, splits["train"], cfg, group="train",
-                          seed=cfg.train.seed, workers=args.workers,
-                          prefetch_depth=args.prefetch, buckets=buckets)
+    train_loader = Loader(
+        source, splits["train"], cfg, group="train",
+        batch_size=cfg.train.batch_size // world, seed=cfg.train.seed,
+        workers=args.workers, prefetch_depth=args.prefetch, buckets=buckets,
+        host_shard=None if group is None else (group.rank, world))
     valid_loader = Loader(source, splits["valid"], cfg, group="valid",
                           workers=args.workers, prefetch_depth=args.prefetch,
                           buckets=buckets)
 
-    trainer = Trainer(cfg, device)
+    trainer = Trainer(cfg, device, group=group)
     ckptr = TrainCheckpointer(args.output + "/ckpt", max_to_keep=args.keep)
     start_epoch, skip_batches = 0, 0
     if args.resume:
@@ -204,15 +278,23 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
                 if step % LOG_EVERY == 0:
                     logger.log_metrics(metrics, step)
                 mid_meta = {"epoch": epoch, "batch_in_epoch": batch_in_epoch}
-                if preempted["flag"]:
-                    ckptr.save(trainer.state_dict(), meta=mid_meta)
-                    ckptr.close()
+                # every rank stops after the same step
+                stop = (preempted["flag"] if group is None
+                        else group.all_max(preempted["flag"]) > 0)
+                if stop:
+                    if lead:
+                        ckptr.save(trainer.state_dict(), meta=mid_meta)
+                        ckptr.close()
                     logger.log_message(f"preemption checkpoint at step {step}")
                     return 0
-                if args.save_every_steps and step % args.save_every_steps == 0:
+                if (lead and args.save_every_steps
+                        and step % args.save_every_steps == 0):
                     ckptr.save(trainer.state_dict(), meta=mid_meta)
             skip_batches = 0
             secs = time.perf_counter() - t0
+            if group is not None:   # every rank's real samples
+                n_samples = int(group.all_sum(torch.tensor(
+                    float(n_samples), device=device)).item())
             logger.log_message(
                 f"epoch {epoch} done in {secs:.1f}s; dropped "
                 f"{train_loader.n_dropped} oversize samples")
@@ -222,13 +304,15 @@ def main(argv=None, on_step: Optional[Callable] = None) -> int:
                                 "samples": n_samples,
                                 "samples_per_s": n_samples / secs},
                                trainer.step, phase="epoch")
-            if ((epoch + 1) % max(args.save_every_epochs, 1) == 0
-                    or epoch + 1 == cfg.train.total_epochs):
+            if lead and ((epoch + 1) % max(args.save_every_epochs, 1) == 0
+                         or epoch + 1 == cfg.train.total_epochs):
                 ckptr.save(trainer.state_dict(),
                            meta={"epoch": epoch + 1, "batch_in_epoch": 0})
             if (args.eval_every > 0 and (epoch + 1) % args.eval_every == 0
                     and valid_loader.indices):
                 evaluate(trainer, valid_loader, device, logger)
+                if on_eval is not None:
+                    on_eval()
         if prof is not None:
             _stop_profile(prof, args.profile_dir, logger)
         ckptr.close()

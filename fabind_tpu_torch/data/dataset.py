@@ -12,11 +12,9 @@ Own copy of fabind_tpu/data/dataset.py for one process on one card:
 - `Loader`: shuffled, shape-bucketed, fixed-size batches of collated numpy
   arrays, with per-sample featurization on `workers` threads, `skip_batches`
   for an exact mid-epoch resume and a count of the samples too large for
-  every bucket. For one seed and source it yields the JAX Loader's batches
-  bit for bit.
-
-Not here yet: the multi-process sharding (`host_shard` and its global
-bucket schedule), which comes with data-parallel training (ROADMAP queue 1).
+  every bucket, and `host_shard=(rank, world)` for a data-parallel rank's
+  share of each global batch. For one seed and source it yields the JAX
+  Loader's batches bit for bit, per rank too.
 """
 from __future__ import annotations
 
@@ -27,7 +25,7 @@ import queue
 import threading
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Iterator, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -268,14 +266,25 @@ class Loader:
     marked in sample_valid. `workers` featurizes on a thread pool (each
     sample with its own seed drawn from the epoch's stream, so the batches
     are the same for any worker count); `prefetch_depth` runs the loop in a
-    background thread."""
+    background thread.
+
+    `host_shard=(rank, world)`: a data-parallel rank's loader. Every rank
+    shuffles the same epoch order and takes global slots rank, rank +
+    world, ... of it, `batch_size` rows per batch (the global batch is
+    world x batch_size); with several buckets, every rank cuts the same
+    global schedule (`_epoch_global_schedule`). Every rank yields the same
+    number of batches in the same buckets, as the collective training step
+    needs: with one bucket an oversize sample is replaced by the rank's
+    last valid one instead of being dropped."""
 
     def __init__(self, source, indices: Sequence, cfg: FABindConfig,
                  group: str = "train", batch_size: Optional[int] = None,
                  seed: int = 0, buckets: Optional[Sequence] = None,
-                 workers: int = 0, prefetch_depth: int = 0):
+                 workers: int = 0, prefetch_depth: int = 0,
+                 host_shard: Optional[Tuple[int, int]] = None):
         self.source = source
         self.indices = list(indices)
+        self.host_shard = host_shard
         self.cfg = cfg
         self.group = group
         self.batch_size = batch_size or cfg.train.batch_size
@@ -284,11 +293,16 @@ class Loader:
         self.prefetch_depth = prefetch_depth
         self.n_dropped = 0
         self.bucket_cfgs = sort_bucket_cfgs(cfg, buckets)
+        self._route_table = None   # host_shard's static routing
 
     def __len__(self):
-        """Batches per epoch with one bucket (a lower bound with several:
-        each bucket pads its own trailing batch)."""
-        return -(-len(self.indices) // self.batch_size)
+        """Batches per epoch with one bucket, per rank under host_shard (a
+        lower bound with several: each bucket pads its own trailing
+        batch)."""
+        n = len(self.indices)
+        if self.host_shard is not None:
+            n = -(-n // self.host_shard[1])
+        return -(-n // self.batch_size)
 
     def epoch(self, epoch: int = 0, with_meta: bool = False,
               skip_batches: int = 0) -> Iterator:
@@ -332,14 +346,131 @@ class Loader:
         finally:
             ex.shutdown(wait=False, cancel_futures=True)
 
-    def _epoch_impl(self, epoch: int, with_meta: bool,
-                    skip_batches: int) -> Iterator:
+    def _static_bucket_of(self) -> dict:
+        """idx -> bucket config (None: oversize), computed once from the
+        noise-free build (group 'test': no crop noise, no rotation), the
+        same on every rank. Routing then does not depend on an epoch's crop
+        noise; a noisy crop that keeps more pocket residues than its
+        bucket's max_pocket truncates and counts in pocket_overflow, as
+        one-process bucketed training can."""
+        if self._route_table is not None:
+            return self._route_table
+
+        def route_one(idx):
+            raw = self.source.get(idx)
+            s = build_sample(raw, self.cfg, group="test",
+                             rng=np.random.RandomState(0),
+                             isomorphisms=raw.get("isomorphisms"))
+            return idx, route_sample(s, self.bucket_cfgs)
+
+        if self.workers:
+            ex = ThreadPoolExecutor(self.workers,
+                                    thread_name_prefix="fabind-route")
+            try:
+                table = dict(ex.map(route_one, self.indices))
+            finally:
+                ex.shutdown(wait=False, cancel_futures=True)
+        else:
+            table = dict(route_one(idx) for idx in self.indices)
+        self._route_table = table
+        return table
+
+    def _epoch_global_schedule(self, epoch: int, with_meta: bool,
+                               skip_batches: int) -> Iterator:
+        """host_shard with several buckets: every rank computes the same
+        schedule (the shared shuffle, each sample routed by the static
+        table, global batches of batch_size x world cut per bucket in
+        stream order, each bucket's trailing one padded by repeating its
+        last sample) and yields its stride of each global batch. Batch
+        counts, buckets and sample_valid agree across ranks by
+        construction; oversize samples are dropped by every rank alike.
+        Each sample's featurization is seeded by (seed, epoch, global
+        batch, global slot), so a resume skips whole batches without
+        featurizing them."""
+        pi, pc = self.host_shard
+        G = self.batch_size * pc
         rng = np.random.RandomState(self.seed + epoch)
         order = list(self.indices)
         if self.group == "train":
             rng.shuffle(order)
+        table = self._static_bucket_of()
+
+        queues = {id(c): [] for c in self.bucket_cfgs}
+        sched = []                       # (cfg_b, [idx] * G, n_real_global)
+        for idx in order:
+            cfg_b = table[idx]
+            if cfg_b is None:
+                self.n_dropped += 1
+                continue
+            q = queues[id(cfg_b)]
+            q.append(idx)
+            if len(q) == G:
+                sched.append((cfg_b, list(q), G))
+                q.clear()
+        for c in self.bucket_cfgs:
+            q = queues[id(c)]
+            if q:
+                n_real = len(q)
+                while len(q) < G:
+                    q.append(q[-1])
+                sched.append((c, list(q), n_real))
+        srng = np.random.RandomState((self.seed + 77977 + epoch) % 2 ** 31)
+        seeds = srng.randint(0, 2 ** 31 - 1, size=(max(len(sched), 1), G))
+
+        def build(bi, j_idx):
+            j, idx = j_idx
+            raw = self.source.get(idx)
+            s = build_sample(raw, self.cfg, group=self.group,
+                             rng=np.random.RandomState(seeds[bi][j]),
+                             isomorphisms=raw.get("isomorphisms"))
+            return idx, raw, s
+
+        ex = (ThreadPoolExecutor(self.workers, thread_name_prefix="fabind-data")
+              if self.workers else None)
+        try:
+            for bi, (cfg_b, idxs, n_real) in enumerate(sched):
+                if bi < skip_batches:
+                    continue
+                mine = [(j, idxs[j]) for j in range(pi, G, pc)]
+                built = (list(ex.map(lambda x, bi=bi: build(bi, x), mine))
+                         if ex else [build(bi, x) for x in mine])
+                # the padding sits at the global tail and the stride keeps
+                # order, so this rank's real rows are a prefix
+                n_valid = sum(1 for j, _ in mine if j < n_real)
+                buf = [s for _, _, s in built]
+                batch = collate(buf, cfg_b, n_valid=n_valid)
+                if not with_meta:
+                    yield batch
+                    continue
+                pdbs = [str(raw.get("pdb", idx)) for idx, raw, _ in built]
+                yield batch, {"pdb": pdbs[:n_valid], "n_valid": n_valid,
+                              "cfg": cfg_b,
+                              "iso": [s.get("isomorphisms")
+                                      for s in buf[:n_valid]]}
+        finally:
+            if ex is not None:
+                ex.shutdown(wait=False, cancel_futures=True)
+
+    def _epoch_impl(self, epoch: int, with_meta: bool,
+                    skip_batches: int) -> Iterator:
+        if self.host_shard is not None and len(self.bucket_cfgs) > 1:
+            yield from self._epoch_global_schedule(epoch, with_meta,
+                                                   skip_batches)
+            return
+        rng = np.random.RandomState(self.seed + epoch)
+        order = list(self.indices)
+        if self.group == "train":
+            rng.shuffle(order)
+        if self.host_shard is not None:
+            # every rank runs the same number of steps: each takes
+            # ceil(len / world) slots, wrapping around the order
+            pi, pc = self.host_shard
+            per = -(-len(order) // pc)
+            order = [order[(pi + k * pc) % len(order)] for k in range(per)]
         bufs = {id(c): ([], []) for c in self.bucket_cfgs}
         n_emitted = 0
+        last_valid = None
+        deficit = 0
 
         def emit(buf, pdbs, cfg_b, n_real):
             batch = collate(buf, cfg_b, n_valid=n_real)
@@ -350,19 +481,49 @@ class Loader:
                            "iso": [x.get("isomorphisms")
                                    for x in buf[:n_real]]}
 
+        def feed(cfg_b, raw, s, idx) -> bool:
+            buf, pdbs = bufs[id(cfg_b)]
+            buf.append(s)
+            pdbs.append(str(raw.get("pdb", idx)))
+            return len(buf) == self.batch_size
+
         for idx, raw, s in self._samples(order, rng):
             cfg_b = route_sample(s, self.bucket_cfgs)
             if cfg_b is None:
                 self.n_dropped += 1
-                continue
-            buf, pdbs = bufs[id(cfg_b)]
-            buf.append(s)
-            pdbs.append(str(raw.get("pdb", idx)))
-            if len(buf) == self.batch_size:
+                if self.host_shard is None:
+                    continue
+                # a rank that drops a sample would run one step fewer than
+                # its peers: it repeats its last valid sample instead (or,
+                # before it has one, owes the first valid one)
+                if last_valid is None:
+                    deficit += 1
+                    continue
+                cfg_b, raw, s, idx = last_valid
+            else:
+                if last_valid is None and deficit:
+                    for _ in range(deficit):
+                        if feed(cfg_b, raw, s, idx):
+                            if n_emitted >= skip_batches:
+                                yield emit(*bufs[id(cfg_b)], cfg_b,
+                                           self.batch_size)
+                            n_emitted += 1
+                            bufs[id(cfg_b)] = ([], [])
+                    deficit = 0
+                last_valid = (cfg_b, raw, s, idx)
+            if feed(cfg_b, raw, s, idx):
+                buf, pdbs = bufs[id(cfg_b)]
                 if n_emitted >= skip_batches:
                     yield emit(buf, pdbs, cfg_b, self.batch_size)
                 n_emitted += 1
                 bufs[id(cfg_b)] = ([], [])
+        if deficit:
+            # the whole epoch had no valid sample to repeat, and yielding
+            # fewer batches than the other ranks would hang their step
+            raise RuntimeError(
+                f"host_shard epoch has no valid sample to substitute for "
+                f"{deficit} oversize samples: every sample of this rank "
+                f"exceeds the buckets")
         for cfg_b in self.bucket_cfgs:
             buf, pdbs = bufs[id(cfg_b)]
             if not buf:

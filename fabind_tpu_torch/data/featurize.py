@@ -477,7 +477,8 @@ def extract_esm_feature(seq: str, model) -> np.ndarray:
 
 
 def extract_esm_features(seqs: Sequence[str], model,
-                         batch_size: int = 8) -> List[np.ndarray]:
+                         batch_size: int = 8, dp=1) -> List[np.ndarray]:
     """extract_esm_feature over many sequences, `batch_size` per forward
-    (models.esm2.Esm2Model.embed_sequences)."""
-    return model.embed_sequences(list(seqs), batch_size=batch_size)
+    on each of `dp` encoder replicas (models.esm2.Esm2Model
+    .embed_sequences)."""
+    return model.embed_sequences(list(seqs), batch_size=batch_size, dp=dp)

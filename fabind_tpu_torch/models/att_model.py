@@ -155,7 +155,8 @@ class EfficientMCAttModel(nn.Module):
             g = GraphInputs(*rest[:n_gi])
             seed, weights = rest[n_gi:n_gi + n_seed], rest[n_gi + n_seed:]
             keys = (None if state is None
-                    else StochasticKeys(seed_tensor=seed[0], rnd=i))
+                    else StochasticKeys(seed_tensor=seed[0], rnd=i,
+                                        rows=state.rows))
             with enter_stochastic(keys):
                 _, z, _ = functional_call(
                     self.gnn, dict(zip(names, weights)),

@@ -28,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
+
 Tensor = torch.Tensor
 
 # fair-esm alphabet, the token order all released ESM2 checkpoints use
@@ -184,7 +186,7 @@ class Esm2Model(nn.Module):
         return self.encoder.emb_layer_norm_after(h)
 
     def embed_sequences(self, seqs: List[str], pad_multiple: int = 128,
-                        batch_size: int = 1) -> List[np.ndarray]:
+                        batch_size: int = 1, dp=1) -> List[np.ndarray]:
         """Per-sequence embeddings [len, hidden] as float32 numpy arrays,
         <cls>/<eos> stripped, in input order, computed on the module's
         device in its dtype (move and cast the module once; float32 is
@@ -195,30 +197,61 @@ class Esm2Model(nn.Module):
         bucket filled by repeating its last row, so every forward of a
         bucket has one shape. Batching is exact up to reduction order:
         padded positions are masked out of attention and of the
-        token-dropout rescale."""
+        token-dropout rescale.
+
+        Data parallelism (JAX's `embed_sequences(mesh=)`): `dp` replicas
+        (an int: cards 0..dp-1 of the module's device type, 0 = every
+        visible card; or a sequence of devices) hold copies of the encoder
+        for the call, the module itself on the first; each forward then
+        takes batch_size x dp rows, batch_size on each replica, in threads
+        of their own. `dp` may also be a parallel.dp.ReplicaSet of this
+        encoder that the caller holds across calls."""
         p = next(self.parameters())
+        replicas = own = None
+        if isinstance(dp, ReplicaSet):
+            replicas = dp
+        elif dp != 1:
+            devices = (list(dp) if isinstance(dp, (list, tuple))
+                       else dp_devices(p.device, dp))
+            replicas = own = ReplicaSet(self, devices)
+        n_rep = 1 if replicas is None else len(replicas)
+        rows = batch_size * n_rep
         buckets: dict = {}
         for i, seq in enumerate(seqs):
             pad = -(-(len(seq) + 2) // pad_multiple) * pad_multiple
             buckets.setdefault(pad, []).append(i)
         out: List = [None] * len(seqs)
-        with torch.inference_mode():
-            for pad in sorted(buckets):
-                idxs = buckets[pad]
-                for c0 in range(0, len(idxs), batch_size):
-                    chunk = idxs[c0:c0 + batch_size]
-                    ids = np.stack([tokenize(seqs[i], pad_to=pad)
-                                    for i in chunk])
-                    if len(chunk) < batch_size:
-                        ids = np.concatenate([ids, np.repeat(
-                            ids[-1:], batch_size - len(chunk), 0)], 0)
-                    ids_t = torch.from_numpy(ids.astype(np.int64)).to(
-                        p.device)
-                    h = self(ids_t, (ids_t != PAD_ID).to(torch.int32))
-                    h = h.float().cpu().numpy()
-                    for row, i in enumerate(chunk):
-                        out[i] = h[row, 1:len(seqs[i]) + 1]
+        try:
+            with torch.inference_mode():
+                for pad in sorted(buckets):
+                    idxs = buckets[pad]
+                    for c0 in range(0, len(idxs), rows):
+                        chunk = idxs[c0:c0 + rows]
+                        ids = np.stack([tokenize(seqs[i], pad_to=pad)
+                                        for i in chunk])
+                        if len(chunk) < rows:
+                            ids = np.concatenate([ids, np.repeat(
+                                ids[-1:], rows - len(chunk), 0)], 0)
+                        ids_t = torch.from_numpy(ids.astype(np.int64))
+                        if replicas is None:
+                            h = _embed_ids(self, ids_t.to(p.device))
+                        else:
+                            h = np.concatenate(replicas.map(
+                                lambda r, part: _embed_ids(
+                                    replicas.modules[r],
+                                    part.to(replicas.devices[r])),
+                                [ids_t[s] for s in replicas.blocks(rows)]))
+                        for row, i in enumerate(chunk):
+                            out[i] = h[row, 1:len(seqs[i]) + 1]
+        finally:
+            if own is not None:
+                own.close()
         return out
+
+
+def _embed_ids(model: Esm2Model, ids: Tensor) -> np.ndarray:
+    """One forward of token ids [B, L] on their device -> float32 numpy."""
+    return model(ids, (ids != PAD_ID).to(torch.int32)).float().cpu().numpy()
 
 
 def _config_from_state_dict(sd, num_heads: int) -> Esm2Config:

@@ -223,12 +223,14 @@ class FABind(nn.Module):
         Training (train True; default in .train() mode) runs inside
         `layers.dropout_rng(generator)`, which gives the dropout masks, the
         recycle counts and the gumbel-softmax uniforms (or pass them as
-        `gumbel_u` [B, Nr, 2]). FABind+ always docks into the precomputed
-        crop (teacher forcing). Base docks into the predicted crop when a
-        coin drawn on the host from the block's seed (layers.stage_coin)
-        is below cfg.stage_prob and the mean center
-        error over all B rows is below cfg.center_dist_threshold, as the
-        JAX package's gate; the gate is decided on the host, so the step
+        `gumbel_u` [B, Nr, 2]; a part of a data-parallel batch takes its
+        rows of the global batch's draws and of `gumbel_u`, layers.RowMap).
+        FABind+ always docks into the precomputed crop (teacher forcing).
+        Base docks into the predicted crop when a coin drawn on the host
+        from the block's seed (layers.stage_coin) is below cfg.stage_prob
+        and the mean center error over all rows of the global batch is
+        below cfg.center_dist_threshold, as the JAX package's gate; the
+        gate is decided on the host, so the step
         reads the center error back (one device sync, only when the coin
         falls below stage_prob) and docks once instead of selecting
         between two candidates."""
@@ -241,27 +243,35 @@ class FABind(nn.Module):
                 "noise from layers.dropout_rng(generator); run it inside one")
         compound_out, protein_out, cls_logits, radius_pred = \
             self._pocket_pred(batch, shapes)
+        B = batch.batch_size
+        state = active_stochastic()
+        u = None
+        if train:
+            # a part of a data-parallel batch draws the global batch's
+            # uniforms at its rows (layers.RowMap); `gumbel_u` is given at
+            # the global batch's shape too
+            u = (state.rows.take(gumbel_u, B) if gumbel_u is not None
+                 else state.rand((B, cls_logits.shape[1], 2),
+                                 cls_logits.device, cls_logits.dtype).clamp(
+                     min=torch.finfo(cls_logits.dtype).tiny))
         pred_center = pocket_center_from_cls(
             cls_logits, batch.prot_xyz, batch.prot_mask, cfg.gs_tau,
-            cfg.gs_hard, generator=active_dropout_rng() if train else None,
-            u=gumbel_u if train else None)
+            cfg.gs_hard, u=u)
 
         if train and not cfg.is_plus:
-            coin = stage_coin(active_stochastic().seed)
-            use_stage2 = coin < cfg.stage_prob and float(torch.linalg.norm(
-                (batch.coords_center - pred_center).detach(), dim=-1).mean()
-            ) < cfg.center_dist_threshold
+            coin = stage_coin(state.seed)
+            use_stage2 = coin < cfg.stage_prob and float(state.rows.mean(
+                torch.linalg.norm((batch.coords_center - pred_center).detach(),
+                                  dim=-1))) < cfg.center_dist_threshold
         else:
             use_stage2 = not train and stage == 2
 
-        B = batch.batch_size
         if use_stage2:
             center = pred_center
             if train and cfg.train_pred_pocket_noise > 0:
                 center = center + cfg.train_pred_pocket_noise * (
-                    2 * torch.rand(center.shape, generator=active_dropout_rng(),
-                                   device=center.device,
-                                   dtype=center.dtype) - 1)
+                    2 * state.rand(center.shape, center.device,
+                                   center.dtype) - 1)
             pkt_idx, pkt_mask, keep_less_5, overflow = self._predicted_crop(
                 center.detach(), batch, shapes, self._crop_radius(radius_pred))
         else:

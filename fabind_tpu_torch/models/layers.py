@@ -9,7 +9,8 @@ from __future__ import annotations
 import contextlib
 import math
 import threading
-from typing import Iterator, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import (Callable, Iterator, NamedTuple, Optional, Sequence,
+                    Tuple, Union)
 
 import torch
 import torch.nn.functional as F
@@ -47,18 +48,51 @@ def signed64(seed: int) -> int:
     return seed - 2**64 if seed >= 2**63 else seed
 
 
+class RowMap(NamedTuple):
+    """Where the rows of a forward's batch sit in the global batch that
+    data parallelism splits: local row j is row j * mul + add of a global
+    batch of `total` rows (a serving replica's contiguous block from row
+    `start`: (1, start); a training rank's strided rows: (world, rank)).
+    A stochastic forward then draws what the global batch draws at those
+    rows: its dropout masks by their global element index (ops/dropout.py),
+    the gumbel uniforms and the pocket noise at the global shape, sliced.
+    `all_sum` sums a tensor over every part of the global batch (a
+    collective across training ranks), for the one batch statistic the
+    training forward takes (the stage gate's mean center error); None where
+    no part needs another's rows. The default maps a batch onto itself."""
+
+    mul: int = 1
+    add: int = 0
+    total: Optional[int] = None
+    all_sum: Optional[Callable[[Tensor], Tensor]] = None
+
+    def take(self, t: Tensor, n: int) -> Tensor:
+        """The n local rows of `t` [total, ...] (t itself without a map)."""
+        if self.total is None:
+            return t
+        return t[self.add:self.add + self.mul * (n - 1) + 1:self.mul]
+
+    def mean(self, x: Tensor) -> Tensor:
+        """The mean of x [n] over the rows of the global batch."""
+        if self.all_sum is None:
+            return x.mean()
+        return self.all_sum(x.sum()) / self.total
+
+
 class StochasticKeys:
     """One stochastic forward's keys: the seed (a host int, and per device
     a tensor the kernels read), the current recycle round (an int, or a
-    tensor inside a traced loop) and the generator of the training-only
-    draws."""
+    tensor inside a traced loop), the generator of the training-only draws
+    and the row map of a part of a data-parallel batch."""
 
     def __init__(self, seed: Optional[int] = None,
                  seed_tensor: Optional[Tensor] = None,
-                 generator: Optional[torch.Generator] = None, rnd=0):
+                 generator: Optional[torch.Generator] = None, rnd=0,
+                 rows: RowMap = RowMap()):
         self.seed = seed
         self.generator = generator
         self.round = rnd
+        self.rows = rows
         self._seeds = {} if seed_tensor is None else {
             seed_tensor.device: seed_tensor}
         self._rounds = {}
@@ -77,6 +111,18 @@ class StochasticKeys:
             rounds = self._rounds[device] = torch.arange(
                 ROUND_SLOTS, dtype=torch.int64, device=device)
         return rounds[self.round]
+
+    def rand(self, shape, device, dtype) -> Tensor:
+        """torch.rand from the generator at the global batch's shape (the
+        leading axis `rows.total`), this part's rows of it."""
+        if self.generator is None:
+            raise RuntimeError("the training-only draws need "
+                               "layers.dropout_rng(generator)")
+        n = shape[0]
+        full = (n if self.rows.total is None else self.rows.total,
+                *shape[1:])
+        return self.rows.take(torch.rand(full, generator=self.generator,
+                                         device=device, dtype=dtype), n)
 
 
 @contextlib.contextmanager
@@ -98,7 +144,8 @@ def active_stochastic() -> Optional[StochasticKeys]:
 
 
 @contextlib.contextmanager
-def dropout_rng(generator: Optional[torch.Generator]
+def dropout_rng(generator: Optional[torch.Generator],
+                rows: RowMap = RowMap()
                 ) -> Iterator[Optional[torch.Generator]]:
     """Run the forwards of the block stochastically in the current thread,
     as the JAX package's `deterministic=False`: every Dropout draws its mask
@@ -109,23 +156,26 @@ def dropout_rng(generator: Optional[torch.Generator]
     itself gives only the training-only draws (the gumbel uniforms and the
     pocket-center noise). Other threads are unaffected, so concurrent calls
     on one shared module (the serving engine's) keep their deterministic
-    forwards. None runs the block deterministically."""
+    forwards. None runs the block deterministically. `rows` is the row
+    map of a part of a data-parallel batch (RowMap)."""
     state = (None if generator is None else
-             StochasticKeys(generator.initial_seed(), generator=generator))
+             StochasticKeys(generator.initial_seed(), generator=generator,
+                            rows=rows))
     with enter_stochastic(state):
         yield generator
 
 
 @contextlib.contextmanager
-def dropout_seed(seed: Union[int, Tensor]) -> Iterator[None]:
+def dropout_seed(seed: Union[int, Tensor],
+                 rows: RowMap = RowMap()) -> Iterator[None]:
     """dropout_rng from a seed alone: an int (the host knows it: the recycle
     counts can be drawn, and each device gets the seed as a tensor once), or
     an int64 tensor on the device (a traced program's input: the masks are
     drawn without the host, and the recycle counts must be passed to the
     loops). Without a generator, the training-only draws are not
-    available."""
-    state = (StochasticKeys(seed_tensor=seed) if isinstance(seed, Tensor)
-             else StochasticKeys(seed))
+    available. `rows` is the row map of a part of a data-parallel batch."""
+    state = (StochasticKeys(seed_tensor=seed, rows=rows)
+             if isinstance(seed, Tensor) else StochasticKeys(seed, rows=rows))
     with enter_stochastic(state):
         yield
 
@@ -201,7 +251,7 @@ class Dropout(nn.Module):
         state = active_stochastic()
         return dropout(x, state.seed_tensor(x.device),
                        state.round_tensor(x.device), self.site, call,
-                       self.rate)
+                       self.rate, state.rows.mul, state.rows.add)
 
 
 class LnL1Parts(NamedTuple):

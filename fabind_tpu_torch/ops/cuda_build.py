@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,13 +37,15 @@ def find_nvcc() -> str:
 class CudaKernel:
     """One kernel source: its library, built on demand, and the count of
     launches its wrapper made (the wrapper calls `count_launch` once per
-    launch; callers read and reset `launches`)."""
+    launch; callers read and reset `launches`, and `variants`, the launches
+    of a source's other kernels by name)."""
 
     def __init__(self, source: str,
                  symbols: Dict[str, Tuple[Sequence, object]]):
         self.source = CSRC_DIR / source
         self.symbols = symbols          # C function -> (argtypes, restype)
         self.launches = 0
+        self.variants: Dict[str, int] = {}
         self.build_log = ""
         self._lib = None
         self._lock = threading.Lock()
@@ -75,11 +77,14 @@ class CudaKernel:
                                f"{self.build_log}")
         os.replace(tmp, self.lib_path)
 
-    def count_launch(self) -> None:
-        """Add one launch. Under the lock: `+=` is a read-modify-write, and
-        the serving daemon launches from several threads."""
+    def count_launch(self, variant: Optional[str] = None) -> None:
+        """Add one launch (and one of `variant`, when named). Under the
+        lock: `+=` is a read-modify-write, and the serving daemon and the
+        data-parallel replicas launch from several threads."""
         with self._lock:
             self.launches += 1
+            if variant is not None:
+                self.variants[variant] = self.variants.get(variant, 0) + 1
 
     @property
     def lib(self) -> ctypes.CDLL:

@@ -17,6 +17,17 @@ once per call) and the round. Nothing depends on generator state, so
   - the backward is the same function on the incoming gradient;
   - the CPU and the card draw the same masks, in fp32 and bf16.
 
+Data parallelism splits a batch's rows (the leading axis) over replicas or
+ranks, and each part must draw the masks of its rows in the whole batch. A
+row map (row_mul, row_add) says where they sit: with R = numel / x.shape[0]
+elements per row, local element i draws as global element
+((i // R) * row_mul + row_add) * R + i % R. A serving replica's contiguous
+block of rows from `start` maps with (1, start), a training rank's strided
+rows r, r + N, ... with (N, r). The default (1, 0) is the identity and
+keeps the unmapped code path: the kernel's 16-byte loop, one Philox counter
+per 4 elements. A mapped tensor runs a second, simpler kernel, since groups
+of 4 global elements straddle rows when R is not a multiple of 4.
+
 `dropout` is the registered operator `torch.ops.fabind_tpu_torch.dropout`:
 on CUDA tensors one launch of the hand-written kernel (csrc/dropout.cu,
 counted in KERNEL.launches), on CPU tensors the plain version below, which
@@ -43,11 +54,15 @@ PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 _DTYPE_IDS = {torch.float32: 0, torch.bfloat16: 1}
 
+_DROPOUT_ARGS = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
+                 ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
+                 ctypes.c_int]
 KERNEL = CudaKernel("dropout.cu", {
-    "fabind_dropout": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_uint32,
-                        ctypes.c_uint32, ctypes.c_uint32, ctypes.c_float,
-                        ctypes.c_int, ctypes.c_void_p], ctypes.c_int),
+    "fabind_dropout": (_DROPOUT_ARGS + [ctypes.c_void_p], ctypes.c_int),
+    # + row_len, row_mul, row_add before the stream
+    "fabind_dropout_rows": (_DROPOUT_ARGS + [ctypes.c_longlong] * 3
+                            + [ctypes.c_void_p], ctypes.c_int),
     "fabind_philox4x32": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_void_p], ctypes.c_int),
 })
@@ -113,27 +128,48 @@ def scale(rate: float) -> float:
 
 
 def bits_reference(n: int, seed: int, site: int, call: int, rnd: int,
-                   device) -> Tensor:
-    """The n 32-bit draws of one key as an int64 tensor on `device`."""
+                   device, row_len: int = 1, row_mul: int = 1,
+                   row_add: int = 0) -> Tensor:
+    """The n 32-bit draws of one key as an int64 tensor on `device`; with a
+    row map other than (1, 0), the draws of the global elements that rows
+    of `row_len` elements map to (module docstring)."""
     k = derive_key(seed, site, call, rnd)
-    c = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
-    words = philox4x32_10((c & MASK32, c >> 32, 0, 0), k)
-    return torch.stack(words, -1).reshape(-1)[:n]
+    if (row_mul, row_add) == (1, 0):
+        c = torch.arange((n + 3) // 4, dtype=torch.int64, device=device)
+        words = philox4x32_10((c & MASK32, c >> 32, 0, 0), k)
+        return torch.stack(words, -1).reshape(-1)[:n]
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    g = (i // row_len * row_mul + row_add) * row_len + i % row_len
+    c = g >> 2
+    words = torch.stack(philox4x32_10((c & MASK32, c >> 32, 0, 0), k), -1)
+    return words.gather(1, (g & 3)[:, None])[:, 0]
+
+
+def row_len(x: Tensor) -> int:
+    """Elements per row of the leading axis (1 for a 0-d tensor)."""
+    return x.numel() // x.shape[0] if x.dim() and x.shape[0] else 1
 
 
 def dropout_reference(x: Tensor, seed: Tensor, rnd: Tensor, site: int,
-                      call: int, rate: float) -> Tensor:
+                      call: int, rate: float, row_mul: int = 1,
+                      row_add: int = 0) -> Tensor:
     """Plain version: the module docstring's function with int64 tensor
     arithmetic on x's device (it reads seed and round to the host)."""
-    u = bits_reference(x.numel(), int(seed), site, call, int(rnd), x.device)
+    u = bits_reference(x.numel(), int(seed), site, call, int(rnd), x.device,
+                       row_len(x), row_mul, row_add)
     keep = (u >= threshold(rate)).reshape(x.shape)
     s = torch.tensor(scale(rate), dtype=torch.float32, device=x.device)
     return torch.where(keep, (x.float() * s).to(x.dtype), 0.0)
 
 
-def check_inputs(x: Tensor, seed: Tensor, rnd: Tensor, rate: float) -> None:
+def check_inputs(x: Tensor, seed: Tensor, rnd: Tensor, rate: float,
+                 row_mul: int = 1, row_add: int = 0) -> None:
     """What the kernel takes: x fp32/bf16, seed and round one int64 each on
-    x's device, 0 <= rate < 1. Raises on anything else."""
+    x's device, 0 <= rate < 1, row_mul >= 1 and row_add >= 0. Raises on
+    anything else."""
+    if row_mul < 1 or row_add < 0:
+        raise ValueError(f"dropout: row map ({row_mul}, {row_add}) needs "
+                         f"row_mul >= 1 and row_add >= 0")
     if x.dtype not in _DTYPE_IDS:
         raise TypeError(f"dropout: x must be one of {list(_DTYPE_IDS)}, got "
                         f"{x.dtype}")
@@ -148,66 +184,79 @@ def check_inputs(x: Tensor, seed: Tensor, rnd: Tensor, rate: float) -> None:
 @torch.library.custom_op("fabind_tpu_torch::dropout", mutates_args=(),
                          device_types="cpu")
 def dropout_op(x: Tensor, seed: Tensor, rnd: Tensor, site: int, call: int,
-               rate: float) -> Tensor:
+               rate: float, row_mul: int = 1, row_add: int = 0) -> Tensor:
     """Dropout as a registered operator: its CPU implementation is the
     plain version, its CUDA one the kernel (below), so a traced program
     records one call that dispatches on the device it runs on."""
-    check_inputs(x, seed, rnd, rate)
-    return dropout_reference(x, seed, rnd, site, call, rate)
+    check_inputs(x, seed, rnd, rate, row_mul, row_add)
+    return dropout_reference(x, seed, rnd, site, call, rate, row_mul,
+                             row_add)
 
 
 @dropout_op.register_kernel("cuda")
 def _launch(x: Tensor, seed: Tensor, rnd: Tensor, site: int, call: int,
-            rate: float) -> Tensor:
-    """One launch on the current stream. Raises on bad input or a failed
-    launch; counts the launch when it runs."""
-    check_inputs(x, seed, rnd, rate)
+            rate: float, row_mul: int = 1, row_add: int = 0) -> Tensor:
+    """One launch on the current stream: the unmapped kernel for the
+    identity row map, the mapped one otherwise. Raises on bad input or a
+    failed launch; counts the launch when it runs (a mapped one also under
+    the variant "rows")."""
+    check_inputs(x, seed, rnd, rate, row_mul, row_add)
     x = x.contiguous()
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
+    mapped = (row_mul, row_add) != (1, 0)
+    args = (x.data_ptr(), out.data_ptr(), x.numel(), seed.data_ptr(),
+            rnd.data_ptr(), site & MASK32, call & MASK32, threshold(rate),
+            scale(rate), _DTYPE_IDS[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = KERNEL.lib.fabind_dropout(
-            x.data_ptr(), out.data_ptr(), x.numel(), seed.data_ptr(),
-            rnd.data_ptr(), site & MASK32, call & MASK32, threshold(rate),
-            scale(rate), _DTYPE_IDS[x.dtype], stream)
+        if mapped:
+            err = KERNEL.lib.fabind_dropout_rows(
+                *args, row_len(x), row_mul, row_add, stream)
+        else:
+            err = KERNEL.lib.fabind_dropout(*args, stream)
     if err != 0:
         raise RuntimeError(f"dropout kernel launch failed: CUDA error {err}")
-    KERNEL.count_launch()
+    KERNEL.count_launch("rows" if mapped else None)
     return out
 
 
 @dropout_op.register_fake
-def _fake(x, seed, rnd, site, call, rate):
+def _fake(x, seed, rnd, site, call, rate, row_mul=1, row_add=0):
     return torch.empty_like(x, memory_format=torch.contiguous_format)
 
 
 def _setup_context(ctx, inputs, output):
-    _, seed, rnd, site, call, rate = inputs
+    _, seed, rnd, *key = inputs
     ctx.save_for_backward(seed, rnd)
-    ctx.key = (site, call, rate)
+    ctx.key = tuple(key)
 
 
 def _backward(ctx, grad):
     # d out / d x = keep * scale: the same function of the gradient
     seed, rnd = ctx.saved_tensors
-    return (dropout_op(grad.contiguous(), seed, rnd, *ctx.key), None, None,
-            None, None, None)
+    return (dropout_op(grad.contiguous(), seed, rnd, *ctx.key),
+            *(None,) * (2 + len(ctx.key)))
 
 
 dropout_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def dropout(x: Tensor, seed: Tensor, rnd: Tensor, site: int, call: int,
-            rate: float) -> Tensor:
+            rate: float, row_mul: int = 1, row_add: int = 0) -> Tensor:
     """Inverted dropout of x under the key (seed, site, call, round)
     through the registered operator: one launch of the CUDA kernel for a
     CUDA tensor (it launches or raises), the plain version for a CPU
-    tensor."""
+    tensor. (row_mul, row_add) is the row map of a part of a batch split
+    by data parallelism (module docstring)."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"dropout: unsupported device {x.device}")
-    return dropout_op(x, seed, rnd, site, call, rate)
+    if (row_mul, row_add) == (1, 0):
+        # the operator's defaults: a traced program records the call as
+        # it did before row maps existed
+        return dropout_op(x, seed, rnd, site, call, rate)
+    return dropout_op(x, seed, rnd, site, call, rate, row_mul, row_add)
 
 
 def philox_on_device(rows: np.ndarray) -> np.ndarray:

@@ -26,6 +26,12 @@ non-deterministic forward). The draws cannot equal the JAX package's
 threefry/rbg streams. What holds instead: the same seed gives the same
 poses, live or exported, and passes with different indices draw different
 masks and counts.
+
+Data-parallel serving (`sample_poses(replicas=)`) runs each half on every
+replica's contiguous block of rows, in the replica's thread, with its row
+map (the masks the whole batch draws at those rows); the host step between
+the halves (DBSCAN and the cluster picks, one RandomState row after row)
+stays on the whole batch, so the picks are one replica's.
 """
 from __future__ import annotations
 
@@ -37,9 +43,11 @@ from scipy.spatial.distance import cdist
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.data.types import to_device
-from fabind_tpu_torch.models.layers import dropout_seed, recycle_count
+from fabind_tpu_torch.models.layers import (RowMap, dropout_seed,
+                                            recycle_count)
 from fabind_tpu_torch.ops.dropout import site_id
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
+from fabind_tpu_torch.parallel.dp import ReplicaSet
 
 Tensor = torch.Tensor
 
@@ -159,12 +167,14 @@ def recycle_counts(m: ModelConfig, seed: int) -> Tuple[int, int]:
             recycle_count(seed, DOCK_LOOP_SITE, m.n_iter))
 
 
-def stochastic_pocket(model, batch, shapes, seed, count):
+def stochastic_pocket(model, batch, shapes, seed, count,
+                      rows: RowMap = RowMap()):
     """The pocket half of a stochastic pass: the pocket stage under `seed`
     with recycle count `count` (ints, or tensors in a traced program), and
     its rounded default center in float32. Returns (pocket outputs,
-    center [B, 3])."""
-    with dropout_seed(seed):
+    center [B, 3]). `rows`: the batch's row map in a data-parallel
+    batch."""
+    with dropout_seed(seed, rows):
         pocket = model._pocket_pred(batch, shapes, count)
     m = model.cfg
     return pocket, pocket_center_rounded(pocket[2], batch.prot_xyz,
@@ -172,26 +182,27 @@ def stochastic_pocket(model, batch, shapes, seed, count):
                                          m.gs_hard).float()
 
 
-def stochastic_dock(model, batch, shapes, pocket, center, seed, count):
+def stochastic_dock(model, batch, shapes, pocket, center, seed, count,
+                    rows: RowMap = RowMap()):
     """The dock half of a stochastic pass: docking from the pass's pocket
     outputs at `center`. Returns (coords [B,Nc,3], confidence [B])."""
-    with dropout_seed(seed):
+    with dropout_seed(seed, rows):
         coords, conf, _ = model.inference_diag(batch, center, shapes,
                                                pocket=pocket, count=count)
     return coords, conf
 
 
 def stochastic_inference(model, batch, shapes, center, seed, pocket_count,
-                         count):
+                         count, rows: RowMap = RowMap()):
     """A whole stochastic forward docked at `center` (the fixed pocket
     mode's pass). Returns (coords [B,Nc,3], confidence [B])."""
-    with dropout_seed(seed):
+    with dropout_seed(seed, rows):
         coords, conf, _ = model.inference_diag(
             batch, center, shapes, pocket_count=pocket_count, count=count)
     return coords, conf
 
 
-def live_halves(model, cfg):
+def live_halves(model, cfg, rows: RowMap = RowMap()):
     """(pocket_fn, dock_fn) of the live model in bucket cfg, with the
     per-mode contract of sample_poses' `halves`:
 
@@ -200,28 +211,30 @@ def live_halves(model, cfg):
       - "fixed": pocket_fn(batch) -> pocket outputs (deterministic);
         dock_fn(batch, center, seed) -> (coords, confidence)
 
-    seed is the pass's int seed; the recycle counts are drawn from it."""
+    seed is the pass's int seed; the recycle counts are drawn from it.
+    `rows` is the batch's row map when it is a replica's block."""
     m, shapes = cfg.model, cfg.shapes
     if m.sampling_pocket_mode == "stochastic":
         def pocket_fn(batch, seed):
             return stochastic_pocket(model, batch, shapes, seed,
-                                     recycle_counts(m, seed)[0])
+                                     recycle_counts(m, seed)[0], rows)
 
         def dock_fn(batch, pocket, center, seed):
             return stochastic_dock(model, batch, shapes, pocket, center,
-                                   seed, recycle_counts(m, seed)[1])
+                                   seed, recycle_counts(m, seed)[1], rows)
     else:
         def pocket_fn(batch):
             return model._pocket_pred(batch, shapes)
 
         def dock_fn(batch, center, seed):
             return stochastic_inference(model, batch, shapes, center, seed,
-                                        *recycle_counts(m, seed))
+                                        *recycle_counts(m, seed), rows)
     return pocket_fn, dock_fn
 
 
 def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
-                 batch_idx: int = 0, halves=None) -> Tuple[Tensor, Tensor]:
+                 batch_idx: int = 0, halves=None,
+                 replicas=None) -> Tuple[Tensor, Tensor]:
     """`sample_size` stochastic docking passes over one batch of bucket cfg
     (`cfg.shapes`, with the protocol of `cfg.model.sampling_pocket_mode`
     and `cfg.model.use_clustering`); returns (coords [S, B, Nc, 3], scores
@@ -233,61 +246,107 @@ def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
     None). Pass s is keyed by `pass_seed(seed, batch_idx, s)`: its pocket
     half first, then its docking. The cluster picks draw from one numpy
     RandomState per batch seeded from (seed, batch_idx), as the JAX
-    package's do. Cluster centers go to the crop in float32."""
+    package's do. Cluster centers go to the crop in float32.
+
+    `replicas` (a parallel.dp.ReplicaSet): `batch` is the list of its
+    blocks (ReplicaSet.split) and `model` is not read; each half runs on
+    every block with its replica's module and row map, in the replica's
+    thread, and the result comes back in row order on the first device."""
     m = cfg.model
-    shapes = cfg.shapes
     use_clustering = m.use_clustering
     pocket_mode = m.sampling_pocket_mode
     if pocket_mode not in ("fixed", "stochastic"):
         raise ValueError(f"sampling_pocket_mode {pocket_mode!r}")
-    pocket_fn, dock_fn = halves or live_halves(model, cfg)
-    device = batch.prot_xyz.device
+    if replicas is None:
+        # one replica: every call runs at once in this thread
+        replicas, blocks = ReplicaSet(None, [batch.prot_xyz.device]), [batch]
+        parts = [halves or live_halves(model, cfg)]
+    else:
+        blocks = batch
+        B = sum(b.batch_size for b in blocks)
+        parts = [live_halves(replicas.modules[r], cfg,
+                             replicas.row_map(r, B))
+                 for r in range(len(blocks))]
     rng = np.random.RandomState((seed * 1000003 + batch_idx) % (2 ** 31))
     if use_clustering:
-        prot_xyz = batch.prot_xyz.float().cpu().numpy()
-        prot_mask = batch.prot_mask.cpu().numpy()
+        prot_xyz = np.concatenate([b.prot_xyz.float().cpu().numpy()
+                                   for b in blocks])
+        prot_mask = np.concatenate([b.prot_mask.cpu().numpy()
+                                    for b in blocks])
 
-    def cluster_center(clusters, default: np.ndarray) -> Tensor:
-        return to_device(torch.from_numpy(pick_cluster_centers(
-            clusters, m.choose_cluster_prob, default, rng)), device)
+    def each(fn, *per_block):
+        """fn(r, block, *args[r]) submitted to every replica: futures."""
+        return [replicas.submit(r, fn, r, b, *(a[r] for a in per_block))
+                for r, b in enumerate(blocks)]
+
+    def cluster_centers(clusters, default: np.ndarray) -> List[Tensor]:
+        """The pass's picked centers [B, 3], as each block's rows on its
+        device."""
+        centers = pick_cluster_centers(clusters, m.choose_cluster_prob,
+                                       default, rng)
+        out, start = [], 0
+        for b in blocks:
+            n = b.batch_size
+            out.append(to_device(torch.from_numpy(centers[start:start + n]),
+                                 b.prot_xyz.device))
+            start += n
+        return out
+
+    def probs_of(hosts) -> np.ndarray:
+        return np.concatenate([_probs(h) for h in hosts])
 
     seeds = [pass_seed(seed, batch_idx, s) for s in range(sample_size)]
-    coords: List[Tensor] = []
-    scores: List[Tensor] = []
+    docks = []
     with torch.inference_mode():
         if pocket_mode == "stochastic":
+            def pocket_half(r, b, sd):
+                pocket, center = parts[r][0](b, sd)
+                host = ((_HostCopy(pocket[2]), _HostCopy(center))
+                        if use_clustering else None)
+                return pocket, center, host
+
+            def dock_half(r, b, pocket, center, sd):
+                return parts[r][1](b, pocket, center, sd)
+
             # every pocket half is launched, with the copy of its logits
             # and its default center, before the first copy is read: the
             # host clusters pass s while the device runs the pocket halves
             # behind it and the docks already queued
-            pockets = []
-            for sd in seeds:
-                pocket, center = pocket_fn(batch, sd)
-                host = ((_HostCopy(pocket[2]), _HostCopy(center))
-                        if use_clustering else None)
-                pockets.append((pocket, center, host))
-            for sd, (pocket, center, host) in zip(seeds, pockets):
+            pockets = [each(lambda r, b, sd=sd: pocket_half(r, b, sd))
+                       for sd in seeds]
+            for sd, futs in zip(seeds, pockets):
+                outs = [f.result() for f in futs]
+                centers = [c for _, c, _ in outs]
                 if use_clustering:
-                    center = cluster_center(dbscan_clusters(
-                        _probs(host[0]), prot_xyz, prot_mask, m.dbscan_eps,
-                        m.dbscan_min_samples), host[1].numpy())
-                c, conf = dock_fn(batch, pocket, center, sd)
-                coords.append(c)
-                scores.append(conf)
+                    centers = cluster_centers(dbscan_clusters(
+                        probs_of([h[0] for _, _, h in outs]), prot_xyz,
+                        prot_mask, m.dbscan_eps, m.dbscan_min_samples),
+                        np.concatenate([h[1].numpy() for _, _, h in outs]))
+                docks.append(each(
+                    lambda r, b, o, c, sd=sd: dock_half(r, b, o[0], c, sd),
+                    outs, centers))
         else:
-            pocket = pocket_fn(batch)
-            default = pocket_center_rounded(
-                pocket[2], batch.prot_xyz, batch.prot_mask, m.gs_tau,
-                m.gs_hard).float()
+            def pocket_half(r, b):
+                pocket = parts[r][0](b)
+                default = pocket_center_rounded(
+                    pocket[2], b.prot_xyz, b.prot_mask, m.gs_tau,
+                    m.gs_hard).float()
+                return pocket, default
+
+            outs = [f.result() for f in each(pocket_half)]
+            defaults = [d for _, d in outs]
             if use_clustering:
                 clusters = dbscan_clusters(
-                    _probs(_HostCopy(pocket[2])), prot_xyz, prot_mask,
-                    m.dbscan_eps, m.dbscan_min_samples)
-                default_np = default.cpu().numpy()
+                    probs_of([_HostCopy(p[2]) for p, _ in outs]), prot_xyz,
+                    prot_mask, m.dbscan_eps, m.dbscan_min_samples)
+                default_np = np.concatenate([d.cpu().numpy()
+                                             for d in defaults])
             for sd in seeds:
-                center = (cluster_center(clusters, default_np)
-                          if use_clustering else default)
-                c, conf = dock_fn(batch, center, sd)
-                coords.append(c)
-                scores.append(conf)
-    return torch.stack(coords), torch.stack(scores)
+                centers = (cluster_centers(clusters, default_np)
+                           if use_clustering else defaults)
+                docks.append(each(
+                    lambda r, b, c, sd=sd: parts[r][1](b, c, sd), centers))
+        passes = [replicas.gather([f.result() for f in futs])
+                  for futs in docks]
+    return (torch.stack([c for c, _ in passes]),
+            torch.stack([conf for _, conf in passes]))

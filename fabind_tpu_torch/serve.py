@@ -23,6 +23,12 @@ come back in the world frame of the input structure.
   artifact directory (aot.py, cli/export.py) without building the model;
   `dock_best_of` too when the artifact holds the sampling programs
   (`cli.export --sampling`).
+- `DockingEngine(dp=N)` serves data-parallel over N devices (JAX's
+  `dp`): a replica of the weights on each (parallel.dp.ReplicaSet), each
+  batch's rows split into N contiguous blocks that run on their replicas
+  in threads of their own and come back in row order. Every dock_* method
+  runs so, best-of-N included (its host step between the halves stays on
+  the whole batch). Each replica keeps its own protein-row cache.
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -70,6 +76,7 @@ from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
 from fabind_tpu_torch.data.torsion import randomize_torsions
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays, to_device
 from fabind_tpu_torch.models.fabind import init_params, make_model
+from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.postopt import post_optimize_batch
 from fabind_tpu_torch.sample import sample_poses
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
@@ -111,7 +118,7 @@ def _resolve_device(device) -> torch.device:
 
 class DockingEngine:
     """Weight-resident batch docking with shape-bucket routing on one
-    device.
+    device, or data-parallel over several.
 
     Args:
       cfg: FABindConfig (`preset("fabind")`, `"fabind_plus"`,
@@ -128,8 +135,14 @@ class DockingEngine:
       post_optim_steps: > 0 runs the batched LAS post-optimization
         (postopt.py) on every pose.
       device: "cuda" when None; raises if CUDA is not available. Pass
-        device="cpu" to run on the CPU.
-      dev_prot_cache: protein rows kept on the device (0 disables).
+        device="cpu" to run on the CPU. A sequence of devices puts one
+        replica on each (a device may repeat).
+      dp: replicas, one per card cuda:0..dp-1 (0: every visible card;
+        raises when fewer are visible), or dp CPU replicas with
+        device="cpu". batch_size must divide by the replica count: each
+        replica docks a contiguous block of batch_size / dp rows.
+      dev_prot_cache: protein rows kept on each replica's device (0
+        disables).
       esm: an `models.esm2.Esm2Model` that embeds the proteins of
         `dock_sdf`, moved to the engine's device in float32 (the JAX
         package's embedding dtype, whatever `bf16` says). Without it a
@@ -140,25 +153,39 @@ class DockingEngine:
                  state_dict: Optional[Dict[str, torch.Tensor]] = None,
                  buckets: Optional[Sequence] = None, batch_size: int = 8,
                  bf16: bool = True, post_optim_steps: int = 0, device=None,
-                 seed: int = 0, dev_prot_cache: int = 32, esm=None):
+                 seed: int = 0, dev_prot_cache: int = 32, esm=None,
+                 dp: int = 1):
+        if isinstance(device, (list, tuple)):
+            if dp not in (1, len(device)):
+                raise ValueError(f"dp {dp} with {len(device)} devices")
+            devices = [_resolve_device(d) for d in device]
+        elif dp == 1:
+            devices = [_resolve_device(device)]
+        else:
+            devices = dp_devices(device, dp)
         self._setup(cfg, sort_bucket_cfgs(cfg, buckets), batch_size, bf16,
-                    post_optim_steps, device, dev_prot_cache, esm)
+                    post_optim_steps, devices, dev_prot_cache, esm)
         model = make_model(cfg)
         if state_dict is None:
             init_params(model, torch.Generator().manual_seed(seed))
         else:
             model.load_state_dict(state_dict, strict=True)
-        model = model.to(self.device).eval()
-        self.model = cast_module_bf16(model) if bf16 else model
+        model = model.eval()
+        self.replicas = ReplicaSet(cast_module_bf16(model) if bf16 else model,
+                                   devices)
+        self.model = self.replicas.modules[0]
         self._exported = None
 
     def _setup(self, cfg: FABindConfig, bucket_cfgs, batch_size: int,
-               bf16: bool, post_optim_steps: int, device,
+               bf16: bool, post_optim_steps: int, devices,
                dev_prot_cache: int, esm) -> None:
-        """What a live and an exported engine share: the device (raises
-        without CUDA), the process's backend flags, the buckets, the caches
-        and the encoder."""
-        device = _resolve_device(device)
+        """What a live and an exported engine share: the replicas' devices,
+        the process's backend flags, the buckets, the caches and the
+        encoder (on the first device)."""
+        device = devices[0]
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} not divisible by dp "
+                             f"{len(devices)}")
         # per-process backend flags, as the JAX engine's XLA settings
         if bf16:
             # cuBLAS accumulates bf16 products in fp32 and rounds once, as
@@ -177,10 +204,12 @@ class DockingEngine:
         self.dtype = torch.bfloat16 if bf16 else torch.float32
         self.post_optim_steps = post_optim_steps
         self.device = device
+        self.devices = devices
         self.bucket_cfgs = bucket_cfgs
         self.dev_prot_cache = dev_prot_cache
-        self._dev_prot_rows: "OrderedDict[tuple, Dict[str, torch.Tensor]]" = \
-            OrderedDict()
+        # one protein-row LRU per replica
+        self._prot_rows: List["OrderedDict[tuple, Dict[str, torch.Tensor]]"] \
+            = [OrderedDict() for _ in devices]
         self._lock = threading.RLock()
         self.esm = (None if esm is None
                     else esm.to(self.device, torch.float32).eval())
@@ -217,10 +246,16 @@ class DockingEngine:
         # the backend flags too: the programs compute the exported function
         # only under them
         self._setup(ex.cfg, ex.bucket_cfgs, ex.batch_size, ex.bf16,
-                    ex.post_optim_steps, ex.device, dev_prot_cache, esm)
+                    ex.post_optim_steps, [ex.device], dev_prot_cache, esm)
+        self.replicas = ReplicaSet(None, [ex.device])
         self.model = None
         self._exported = ex
         return self
+
+    @property
+    def _dev_prot_rows(self) -> "OrderedDict[tuple, Dict[str, torch.Tensor]]":
+        """The first replica's protein-row cache."""
+        return self._prot_rows[0]
 
     # ------------------------------------------------------------- routing
     def _route(self, s: Dict) -> FABindConfig:
@@ -261,99 +296,146 @@ class DockingEngine:
                     len(chunk)
 
     # ------------------------------------------------------------- batches
-    def _to_device(self, arrays: Dict, prot: Optional[Dict] = None
-                   ) -> FABindBatch:
-        """Host arrays -> a batch on the engine's device in its dtype; the
-        protein fields come from `prot` (already on the device) when
-        given."""
+    def _to_device(self, arrays: Dict, prot: Optional[Dict] = None,
+                   r: int = 0) -> FABindBatch:
+        """Host arrays -> a batch on replica r's device in the engine's
+        dtype; the protein fields come from `prot` (already on that
+        device) when given."""
         batch = FABindBatch.from_numpy(dict(arrays, **(prot or {})),
-                                       self.device)
+                                       self.devices[r])
         return cast_batch_bf16(batch) if self.bf16 else batch
 
-    def _cached_prot(self, arrays: Dict, chunk, n_real: int
-                     ) -> Dict[str, torch.Tensor]:
-        """The batch's protein fields stacked from device-resident rows,
-        keyed by (Nr, dtype, sha1 of the unpadded ESM features and CA
-        coords); only rows not seen before are uploaded. Bit-identical to
-        uploading the whole batch: a cached row is the collated, cast row.
-        {} when the cache is off."""
+    def _cached_prot(self, arrays: Dict, chunk, n_real: int, r: int = 0,
+                     start: int = 0) -> Dict[str, torch.Tensor]:
+        """The protein fields of host rows `arrays` (rows start.. of the
+        batch) stacked from replica r's device-resident rows, keyed by
+        (Nr, dtype, sha1 of the unpadded ESM features and CA coords); only
+        rows not seen before are uploaded. Bit-identical to uploading the
+        rows: a cached row is the collated, cast row. {} when the cache is
+        off."""
         if not self.dev_prot_cache:
             return {}
         B, nr = arrays["prot_feat"].shape[:2]
         keys = []
-        for b in range(B):
+        for b in range(start, start + B):
             _, s = chunk[min(b, n_real - 1)]   # padding rows repeat the last
             h = hashlib.sha1()
             h.update(np.ascontiguousarray(s["prot_feat"]).tobytes())
             h.update(np.ascontiguousarray(s["prot_xyz"]).tobytes())
             keys.append((nr, self.dtype, h.hexdigest()))
         cast = cast_tensor_bf16 if self.bf16 else (lambda t: t)
+        cache = self._prot_rows[r]
         with self._lock:
             rows = []
             for b, key in enumerate(keys):
-                if key in self._dev_prot_rows:
-                    self._dev_prot_rows.move_to_end(key)
+                if key in cache:
+                    cache.move_to_end(key)
                 else:
-                    self._dev_prot_rows[key] = {
+                    cache[key] = {
                         f: cast(to_device(torch.from_numpy(arrays[f][b]),
-                                          self.device))
+                                          self.devices[r]))
                         for f in _PROT_FIELDS}
-                rows.append(self._dev_prot_rows[key])
-            while len(self._dev_prot_rows) > self.dev_prot_cache:
-                self._dev_prot_rows.popitem(last=False)
-        return {f: torch.stack([r[f] for r in rows]) for f in _PROT_FIELDS}
+                rows.append(cache[key])
+            while len(cache) > self.dev_prot_cache:
+                cache.popitem(last=False)
+        return {f: torch.stack([row[f] for row in rows])
+                for f in _PROT_FIELDS}
+
+    def _upload(self, arrays: Dict, chunk, n_real: int,
+                prot: Optional[List[Dict]] = None):
+        """A host batch on the device: one FABindBatch, or with several
+        replicas a list of each one's contiguous block of rows. `prot`
+        gives each replica's protein fields; else they come from its
+        cache."""
+        if len(self.devices) == 1:
+            return self._to_device(arrays, prot[0] if prot else
+                                   self._cached_prot(arrays, chunk, n_real))
+        blocks = []
+        for r, rows in enumerate(self.replicas.blocks(
+                arrays["prot_feat"].shape[0])):
+            part = {k: None if v is None else v[rows]
+                    for k, v in arrays.items()}
+            blocks.append(self._to_device(
+                part, prot[r] if prot else self._cached_prot(
+                    part, chunk, n_real, r, rows.start), r))
+        return blocks
 
     def batches(self, raws: Sequence[Dict[str, np.ndarray]],
                 results: List[Optional[Pose]]):
         """Featurize, route and upload requests: yields device batches
-        (chunk [(req_pos, sample)...], cfg_b, batch, n_real). Failed
-        requests are written to `results` as error Poses."""
+        (chunk [(req_pos, sample)...], cfg_b, batch, n_real), where batch
+        is a FABindBatch, or with several replicas the list of their
+        blocks. Failed requests are written to `results` as error Poses."""
         for chunk, cfg_b, arrays, n_real in self._routed_batches(raws,
                                                                  results):
-            yield chunk, cfg_b, self._to_device(
-                arrays, self._cached_prot(arrays, chunk, n_real)), n_real
+            yield chunk, cfg_b, self._upload(arrays, chunk, n_real), n_real
 
-    def run_batch(self, batch: FABindBatch, cfg_b: FABindConfig):
+    def _blocks(self, batch) -> list:
+        """A batch as one block per replica: the list `batches` gives, or
+        a FABindBatch split by rows."""
+        return batch if isinstance(batch, list) else self.replicas.split(
+            batch)
+
+    def run_batch(self, batch, cfg_b: FABindConfig):
         """(coords [B,Nc,3], confidence [B], pocket_overflow [B]) for one
-        batch of bucket cfg_b, on the device and not waited for;
-        post-optimized when post_optim_steps > 0. A flexible config also
-        returns the docked pocket, in an exported program's order: (coords,
-        confidence, pocket_coords [B,Np,3], pkt_idx [B,Np], pkt_mask
-        [B,Np], pocket_overflow)."""
+        batch of bucket cfg_b (a FABindBatch, or the replicas' blocks), on
+        the (first) device and not waited for; post-optimized when
+        post_optim_steps > 0. A flexible config also returns the docked
+        pocket, in an exported program's order: (coords, confidence,
+        pocket_coords [B,Np,3], pkt_idx [B,Np], pkt_mask [B,Np],
+        pocket_overflow). Each replica runs its block in its own thread."""
+        return self.replicas.gather(self.replicas.map(
+            lambda r, b: self._run_block(r, b, cfg_b), self._blocks(batch)))
+
+    def _run_block(self, r: int, batch: FABindBatch, cfg_b: FABindConfig):
+        """run_batch of replica r's block."""
         with torch.inference_mode():
             if self._exported is not None:
                 out = self._exported.fn(cfg_b)(batch)
             elif cfg_b.model.flexible_docking:
                 coords, pkt, idx, mask, conf, overflow = \
-                    self.model.inference_flexible_diag(batch,
-                                                       shapes=cfg_b.shapes)
+                    self.replicas.modules[r].inference_flexible_diag(
+                        batch, shapes=cfg_b.shapes)
                 out = (coords, conf, pkt, idx, mask, overflow)
             else:
-                out = self.model.inference_diag(batch, shapes=cfg_b.shapes)
+                out = self.replicas.modules[r].inference_diag(
+                    batch, shapes=cfg_b.shapes)
         return (self._post_optimize(out[0], batch), *out[1:])
 
-    def _best_of_batch(self, batch: FABindBatch, cfg_b: FABindConfig,
+    def _best_of_batch(self, batch, cfg_b: FABindConfig,
                       sample_size: int, seed: int, batch_idx: int):
         """Best-of-N for one batch of bucket cfg_b: (the most confident of
         `sample_size` sampled poses [B,Nc,3] in float32, its confidence [B],
         zeros [B]: the crop's overflow is not measured on this path), on
-        the device. The winner is post-optimized when post_optim_steps > 0,
-        in float32 as the JAX package does: in bf16 a coordinate near 32 A
-        moves in steps of 0.25 A, and most lr-0.1 Adam updates round
-        away."""
-        if self._exported is None:
-            coords, scores = sample_poses(self.model, batch, cfg_b,
+        the (first) device. The winner is post-optimized when
+        post_optim_steps > 0, in float32 as the JAX package does: in bf16 a
+        coordinate near 32 A moves in steps of 0.25 A, and most lr-0.1 Adam
+        updates round away. With several replicas the passes run per
+        replica (sample.sample_poses)."""
+        blocks = self._blocks(batch)
+        if self._exported is not None:
+            coords, scores = sample_poses(
+                None, blocks[0], cfg_b, sample_size, seed=seed,
+                batch_idx=batch_idx,
+                halves=self._exported.sampling_halves(cfg_b))
+        elif len(blocks) == 1:
+            coords, scores = sample_poses(self.model, blocks[0], cfg_b,
                                           sample_size, seed=seed,
                                           batch_idx=batch_idx)
         else:
-            coords, scores = sample_poses(
-                None, batch, cfg_b, sample_size, seed=seed,
-                batch_idx=batch_idx,
-                halves=self._exported.sampling_halves(cfg_b))
+            coords, scores = sample_poses(None, blocks, cfg_b, sample_size,
+                                          seed=seed, batch_idx=batch_idx,
+                                          replicas=self.replicas)
         best = scores.float().argmax(0)                       # [B]
         rows = torch.arange(best.shape[0], device=best.device)
-        return (self._post_optimize(coords[best, rows].float(), batch),
-                scores[best, rows], torch.zeros_like(best))
+        win = coords[best, rows].float()
+        if self.post_optim_steps:
+            win = self.replicas.gather(self.replicas.map(
+                lambda r, w, b: self._post_optimize(w, b),
+                [win[s].to(d) for s, d in zip(
+                    self.replicas.blocks(win.shape[0]), self.devices)],
+                blocks))
+        return win, scores[best, rows], torch.zeros_like(best)
 
     def _post_optimize(self, coords, batch: FABindBatch):
         if not self.post_optim_steps:
@@ -455,13 +537,19 @@ class DockingEngine:
         raws = [dict(lig, **{k: protein_raw[k] for k in pkeys})
                 for lig in ligand_raws]
         results: List[Optional[Pose]] = [None] * len(raws)
-        dev_prot: Dict[int, Dict[str, torch.Tensor]] = {}
+        # per bucket, each replica's protein fields of its rows
+        dev_prot: Dict[int, List[Dict[str, torch.Tensor]]] = {}
         inflight = []
         for chunk, cfg_b, arrays, n_real in self._routed_batches(raws,
                                                                  results):
-            batch = self._to_device(arrays, dev_prot.get(id(cfg_b)))
-            dev_prot.setdefault(id(cfg_b), {f: getattr(batch, f)
-                                            for f in _PROT_FIELDS})
+            prot = dev_prot.get(id(cfg_b))
+            if prot is None:
+                # the screen's one protein goes to each device once
+                prot = [{} for _ in self.devices]
+            batch = self._upload(arrays, chunk, n_real, prot)
+            dev_prot.setdefault(id(cfg_b), [
+                {f: getattr(b, f) for f in _PROT_FIELDS}
+                for b in self._blocks(batch)])
             inflight.append((chunk, n_real, self.run_batch(batch, cfg_b)))
         self._collect(inflight, results)
         return results   # type: ignore[return-value]

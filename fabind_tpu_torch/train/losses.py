@@ -7,18 +7,27 @@ the valid entries of dense tensors; trailing-batch padding duplicates
 (batch.sample_valid False) weigh zero in every term and metric. The
 pocket-cls BCE sums over the padded grid (legacy_padded_bce, the
 reference's rescaled padded mean), so its value depends on the bucket's Nr.
+
+Every term is a ratio of sums over the batch: a masked mean pooled over
+the ligand atoms, pair cells, residues or pocket rows of every sample, or
+a row mean over the valid samples. Under data parallelism a rank holds
+some rows, and `all_sum` makes each denominator the global batch's, so a
+rank's loss is its share of the global loss: the ranks' gradients and
+metrics sum to the one-process values on the global batch. Two metrics
+are not such ratios: `use_stage2` (the batch-level gate, equal on every
+rank) and the counters `keep_less_5` and `pocket_overflow`, plain sums.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from fabind_tpu_torch.config import ModelConfig, TrainConfig
 from fabind_tpu_torch.ops import geometry
-from fabind_tpu_torch.ops.geometry import masked_mean
+from fabind_tpu_torch.ops.geometry import safe_div
 
 Tensor = torch.Tensor
 
@@ -46,8 +55,13 @@ def coord_criterion(name: str):
     raise ValueError(name)
 
 
-def _plain(pred: Tensor, gt: Tensor, lig_mask: Tensor, crit) -> Tensor:
-    return masked_mean(crit(pred, gt).mean(-1), lig_mask)
+def _plain(pred: Tensor, gt: Tensor, lig_mask: Tensor, crit,
+           den: Tensor) -> Tensor:
+    """The criterion's mean over the ligand atoms of lig_mask, pooled over
+    `den` atoms (the mask's count, or a global batch's under data
+    parallelism)."""
+    per_atom = crit(pred, gt).mean(-1)
+    return safe_div((per_atom * lig_mask.to(per_atom.dtype)).sum(), den)
 
 
 def _permute(pred: Tensor, perm: Tensor) -> Tensor:
@@ -60,13 +74,15 @@ def _permute(pred: Tensor, perm: Tensor) -> Tensor:
 
 def permutation_coord_loss(pred: Tensor, gt: Tensor, lig_mask: Tensor,
                            isomorphisms: Optional[Tensor],
-                           iso_mask: Optional[Tensor], crit) -> Tensor:
+                           iso_mask: Optional[Tensor], crit,
+                           den: Tensor) -> Tensor:
     """Permutation-invariant coordinate loss: per sample, the ligand-graph
     automorphism (isomorphisms [B, n_iso, Nc], rows with iso_mask False are
     identity copies) with the least coordinate loss, chosen without
-    gradient, then the criterion through it."""
+    gradient, then the criterion through it, pooled over `den` atoms as
+    `_plain`."""
     if isomorphisms is None:
-        return _plain(pred, gt, lig_mask, crit)
+        return _plain(pred, gt, lig_mask, crit, den)
     per_atom = crit(_permute(pred, isomorphisms), gt[:, None]).mean(-1)
     m = lig_mask[:, None, :].to(per_atom.dtype)
     per_iso = (per_atom * m).sum(-1) / m.sum(-1).clamp(min=1.0)
@@ -75,13 +91,16 @@ def permutation_coord_loss(pred: Tensor, gt: Tensor, lig_mask: Tensor,
     best_iso = torch.gather(
         isomorphisms, 1,
         best[:, None, None].expand(-1, 1, isomorphisms.shape[-1]))[:, 0]
-    return _plain(_permute(pred, best_iso), gt, lig_mask, crit)
+    return _plain(_permute(pred, best_iso), gt, lig_mask, crit, den)
 
 
-def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
+def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig,
+                  all_sum: Optional[Callable[[Tensor], Tensor]] = None
                   ) -> Tuple[Tensor, Dict[str, Tensor]]:
     """(total loss, metrics) of a FABindOutput `out` (float32) against the
-    float32 batch."""
+    float32 batch. `all_sum` (a data-parallel rank's sum over every rank)
+    pools each term's denominator over the global batch (module
+    docstring)."""
     crit = coord_criterion(tcfg.coord_loss_function)
     B = batch.lig_feat.shape[0]
     if batch.sample_valid is not None:
@@ -90,30 +109,43 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
         sv = torch.ones(B, dtype=torch.bool, device=batch.lig_feat.device)
     svf = sv.float()
 
-    def row_mean(x):
-        return (x * svf).sum() / svf.sum().clamp(min=1.0)
-
     out = dataclasses.replace(
         out, lig_mask=out.lig_mask & sv[:, None],
         pair_valid=out.pair_valid & sv[:, None, None],
         prot_mask=out.prot_mask & sv[:, None],
         pkt_mask=out.pkt_mask & sv[:, None])
+    pv = out.pair_valid
+
+    # the pooled means' denominators: this batch's counts, or the global
+    # batch's under data parallelism (one collective for all of them)
+    pools = {"lig": out.lig_mask, "pair": pv, "prot": out.prot_mask,
+             "rows": sv, "pkt": out.pkt_mask}
+    dens = torch.stack([m.float().sum() for m in pools.values()])
+    if all_sum is not None:
+        dens = all_sum(dens)
+    den = dict(zip(pools, dens.unbind()))
+
+    def pooled(v, key):
+        """masked_mean of v over pool `key`, with its denominator."""
+        return safe_div((v * pools[key].to(v.dtype)).sum(), den[key])
+
+    def row_mean(x):
+        return (x * svf).sum() / den["rows"].clamp(min=1.0)
 
     if tcfg.permutation_invariant and batch.isomorphisms is not None:
         com_coord_loss = permutation_coord_loss(
             out.coords, batch.lig_coords, out.lig_mask, batch.isomorphisms,
-            batch.iso_mask, crit)
+            batch.iso_mask, crit, den["lig"])
     else:
         com_coord_loss = _plain(out.coords, batch.lig_coords, out.lig_mask,
-                                crit)
+                                crit, den["lig"])
     com_coord_loss = tcfg.coord_loss_weight * com_coord_loss
 
     # distance-map losses (MSE)
-    pv = out.pair_valid
-    contact_loss = masked_mean((out.y_pred - out.dis_map_target) ** 2, pv)
-    contact_by_pred = masked_mean(
-        (out.y_pred_by_coord - out.dis_map_target) ** 2, pv)
-    contact_distill = masked_mean((out.y_pred_by_coord - out.y_pred) ** 2, pv)
+    contact_loss = pooled((out.y_pred - out.dis_map_target) ** 2, "pair")
+    contact_by_pred = pooled(
+        (out.y_pred_by_coord - out.dis_map_target) ** 2, "pair")
+    contact_distill = pooled((out.y_pred_by_coord - out.y_pred) ** 2, "pair")
     w = tcfg.pair_distance_loss_weight
     wd = tcfg.pair_distance_distill_loss_weight
     zero = torch.zeros((), device=out.coords.device)
@@ -130,9 +162,9 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
     bce = bce_with_logits(out.pocket_cls_logits,
                           out.pocket_cls_label) * svf[:, None]
     if tcfg.legacy_padded_bce:
-        pocket_cls_loss = bce.sum() / out.prot_mask.sum().clamp(min=1)
+        pocket_cls_loss = bce.sum() / den["prot"].clamp(min=1)
     else:
-        pocket_cls_loss = masked_mean(bce, out.prot_mask)
+        pocket_cls_loss = pooled(bce, "prot")
     pocket_cls_loss = tcfg.pocket_cls_loss_weight * pocket_cls_loss
 
     pocket_coord_loss = tcfg.pocket_distance_loss_weight * row_mean(
@@ -154,7 +186,7 @@ def fabind_losses(out, batch, mcfg: ModelConfig, tcfg: TrainConfig
             out.pkt_idx.long()[..., None].expand(-1, -1, 3))
         per = crit(out.pocket_coords, gt_pkt).mean(-1)
         flex_pocket_loss = (tcfg.flex_pocket_coord_loss_weight
-                            * masked_mean(per, out.pkt_mask))
+                            * pooled(per, "pkt"))
 
     total = (com_coord_loss + dismap_total + pocket_cls_loss
              + pocket_coord_loss + radius_loss + flex_pocket_loss)

@@ -23,6 +23,18 @@ Counterpart of fabind_tpu/train/trainer.py (`create_train_state`,
   skipped_nan 1. The trainer's own step count advances either way, as the
   JAX state.step does. Deciding it reads the metrics back to the host
   once per step.
+- data parallelism (`group`, a parallel.dp.DPGroup): rank r of N holds
+  rows r, r + N, ... of the global batch and draws what the global batch
+  draws at them (layers.RowMap: dropout masks, gumbel uniforms, pocket
+  noise; the stage gate's mean over every row). Each loss term's
+  denominator is the global batch's (losses.fabind_losses(all_sum=)), so
+  summing the ranks' float32 master gradients with one all_reduce gives
+  the one-process gradient of the global batch, and every rank takes the
+  same optimizer step. Not a DistributedDataParallel wrapper: the bf16
+  copy's gradients are cast onto the master weights first, and a
+  parameter the stage gate leaves unused counts as a zero gradient. The
+  metrics are summed the same way, so the NaN skip reads the global loss
+  and gradient norm on every rank. The initial weights are rank 0's.
 """
 from __future__ import annotations
 
@@ -36,7 +48,8 @@ import torch
 from fabind_tpu_torch.config import FABindConfig
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models.fabind import FABindOutput, init_params, make_model
-from fabind_tpu_torch.models.layers import dropout_rng
+from fabind_tpu_torch.models.layers import RowMap, dropout_rng
+from fabind_tpu_torch.parallel.dp import DPGroup
 from fabind_tpu_torch.train.losses import fabind_losses
 from fabind_tpu_torch.train.schedule import TrainOptimizer, global_norm
 from fabind_tpu_torch.utils.precision import cast_batch_bf16, cast_module_bf16
@@ -67,10 +80,13 @@ class Trainer:
     train_step(batch, bucket_cfg) takes one step in the batch's shape bucket
     and returns its metrics as floats; eval_step(batch, stage, bucket_cfg)
     runs the deterministic forward. The weights are seeded from
-    cfg.train.seed unless `state_dict` is given."""
+    cfg.train.seed unless `state_dict` is given. With `group` the trainer
+    is one data-parallel rank (module docstring): its batches are its rows
+    of the global batch, and its metrics the global batch's."""
 
     def __init__(self, cfg: FABindConfig, device="cuda",
-                 state_dict: Optional[Dict[str, Tensor]] = None):
+                 state_dict: Optional[Dict[str, Tensor]] = None,
+                 group: Optional[DPGroup] = None):
         self.cfg = cfg
         self.device = torch.device(device)
         if self.device.type == "cuda":
@@ -89,6 +105,10 @@ class Trainer:
         else:
             model.load_state_dict(state_dict, strict=True)
         self.model = model.to(self.device)
+        self.group = group
+        if group is not None:
+            group.broadcast_flat_([*self.model.parameters(),
+                                   *self.model.buffers()])
         self.model16 = None
         if cfg.train.bf16:
             self.model16 = cast_module_bf16(copy.deepcopy(self.model))
@@ -113,11 +133,15 @@ class Trainer:
         model, b = self._compute(batch)
         model.train()
         model.zero_grad(set_to_none=True)
-        with dropout_rng(gen):
+        group = self.group
+        rows = (RowMap() if group is None
+                else group.row_map(batch.batch_size))
+        with dropout_rng(gen, rows):
             out = model(b, train=True, shapes=cfg_b.shapes, gumbel_u=gumbel_u)
         out = output_float32(out)
-        loss, metrics = fabind_losses(out, batch, self.cfg.model,
-                                      self.cfg.train)
+        loss, metrics = fabind_losses(
+            out, batch, self.cfg.model, self.cfg.train,
+            all_sum=None if group is None else group.all_sum)
         loss.backward()
         if self.model16 is not None:
             for p16, p in zip(self.model16.parameters(),
@@ -130,18 +154,30 @@ class Trainer:
                    bucket_cfg: Optional[FABindConfig] = None,
                    gumbel_u: Optional[Tensor] = None) -> Dict[str, float]:
         """One step on `batch` (float32 fields) in `bucket_cfg`'s shapes
-        (default cfg). `gumbel_u` [B, Nr, 2] replaces the step's gumbel
-        uniforms (tests)."""
+        (default cfg). `gumbel_u` [B, Nr, 2] of the global batch replaces
+        the step's gumbel uniforms (tests)."""
         cfg_b = bucket_cfg or self.cfg
         gen = step_generator(self.cfg.train.seed, self.step, self.device)
         metrics = self._forward_loss(batch, cfg_b, gen, gumbel_u)
+        params = list(self.model.parameters())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self.model.parameters()]
+                 for p in params]
+        if self.group is not None:
+            self.group.sum_flat_(grads)
+            for p, g in zip(params, grads):
+                p.grad = g
         grad_norm = global_norm(grads)
         names = list(metrics)
         vals = torch.stack([metrics[k].detach().float().reshape(())
-                            for k in names] + [grad_norm]).cpu().numpy()
-        vals = vals.astype(np.float64)
+                            for k in names] + [grad_norm])
+        if self.group is not None:
+            # each rank's metrics are its share of the global batch's; the
+            # gate and the gradient norm are already the same on every rank
+            summed = self.group.all_sum(vals)
+            same = [names.index("use_stage2"), len(names)]
+            summed[same] = vals[same]
+            vals = summed
+        vals = vals.cpu().numpy().astype(np.float64)
         ok = bool(np.isfinite(vals[names.index("loss")])
                   and np.isfinite(vals[-1]))
         if ok:

@@ -654,3 +654,52 @@ def test_fabflex_engine_on_card(cuda):
         moved = max(moved, float(np.abs(
             g.pocket_coords - raw["protein_xyz"][g.pocket_residues]).max()))
     assert moved > 1e-4
+
+
+# ---------------------------------------------------- data parallelism
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(8, 162, 33, 41), (6, 1025), (4, 7, 3)])
+def test_row_mapped_dropout_kernel_matches_plain_and_rows(cuda, dtype, shape):
+    """The mapped kernel (rows of R elements, R not a multiple of 4 in
+    every case) equals its plain version bit for bit, and a part's masks
+    equal the whole tensor's at its rows: (N, r) strided rows and (1,
+    start) blocks. Each launch counts once, under the variant "rows"."""
+    from fabind_tpu_torch.ops import dropout as D
+
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand(shape, generator=g) * 4 - 2).to(dtype).to(cuda)
+    seed, rnd = torch.tensor(-7, device=cuda), torch.tensor(2, device=cuda)
+    full = D.dropout(x, seed, rnd, 5, 1, 0.3)
+    B = shape[0]
+    for world in (2, 4):
+        if B % world:
+            continue
+        k = B // world
+        for r in range(world):
+            D.KERNEL.variants.clear()
+            part = D.dropout(x[r::world].contiguous(), seed, rnd, 5, 1, 0.3,
+                             world, r)
+            assert D.KERNEL.variants == {"rows": 1}
+            assert torch.equal(part, full[r::world])
+            assert torch.equal(part, D.dropout_reference(
+                x[r::world].contiguous(), seed, rnd, 5, 1, 0.3, world, r))
+            block = D.dropout(x[r * k:(r + 1) * k].contiguous(), seed, rnd,
+                              5, 1, 0.3, 1, r * k)
+            assert torch.equal(block, full[r * k:(r + 1) * k])
+
+
+def test_replica_engine_on_card_matches_one(cuda):
+    """Two replicas on cuda:0 (device list) serve fp32 poses within 1e-3 A
+    of one replica's, with 33 gate launches per replica block."""
+    raws = _requests()
+    one = _engine(bf16=False)
+    two = _engine(bf16=False, device=["cuda:0", "cuda:0"])
+    n_batches = len(list(two.batches(raws, [None] * len(raws))))
+    want = one.dock_raw(raws)
+    edge_gate.KERNEL.launches = 0
+    got = two.dock_raw(raws)
+    assert edge_gate.KERNEL.launches == 2 * n_batches * LAUNCHES_PER_BATCH
+    for g, w in zip(got, want):
+        assert (g.error is None) == (w.error is None)
+        if w.error is None:
+            np.testing.assert_allclose(g.coords, w.coords, atol=1e-3)

@@ -380,7 +380,7 @@ def test_cli_preprocess_esm_and_inference_match_jax(setup, tmp_path):
     the JAX CLI's keys and values, and the directory is read back by
     NPZSource and docked; with --isomorphisms each file also holds the
     ligand's full automorphism group as JAX's VF2 enumerates it, in its
-    order. --esm-dp, not ported, raises."""
+    order. --esm-dp 2 (two encoder replicas) writes dp=1's .npy files."""
     esm_pt = tmp_path / "esm.pt"
     torch.save(setup["esm"].state_dict(), esm_pt)
     seqs = {f"s{i}": F.parse_pdb_atoms(p)["seq"]
@@ -443,9 +443,15 @@ def test_cli_preprocess_esm_and_inference_match_jax(setup, tmp_path):
                 b["lig_feats"].shape[0], b["bond_edges"], b["iso_labels"],
                 max_iso=None)
             np.testing.assert_array_equal(a["isomorphisms"], want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_preprocess.main(["esm", "--seqs", str(fasta), "--out", "x",
-                             "--esm-dp", "2"] + port)
+    cli_preprocess.main(["esm", "--seqs", str(fasta), "--out",
+                         str(tmp_path / "esm_dp"), "--esm-batch", "2",
+                         "--esm-dp", "2"] + port)
+    for name, seq in seqs.items():
+        got = np.load(tmp_path / "esm_dp" / f"{name}.npy")
+        assert got.shape == (len(seq), 1280)
+        np.testing.assert_allclose(
+            got, np.load(tmp_path / "esm" / f"{name}.npy"), atol=1e-6,
+            rtol=0)
 
 
 def test_cli_serve_takes_an_encoder_and_a_pdb_root(setup, tmp_path,

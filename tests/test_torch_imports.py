@@ -30,7 +30,8 @@ def test_port_and_chip_smoke_import_no_jax():
               "train.confidence", "models.esm2", "data.featurize",
               "cli.inference", "cli.preprocess", "aot", "cli.export",
               "cli.selftest", "data.mdb", "data.kv", "data.frame",
-              "data.isomorphism", "ops.dropout"):
+              "data.isomorphism", "ops.dropout", "parallel.dp",
+              "parallel.steps"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"

@@ -452,9 +452,18 @@ def test_esm_lmdb_mode_equals_embed_sequences(stores, tmp_path):
     for k, w in zip(seqs, want):
         assert rows[k].dtype == np.float32 and rows[k].shape == w.shape
         np.testing.assert_allclose(rows[k], w, atol=1e-5, rtol=0)
-    with pytest.raises(NotImplementedError, match="queue 1, data parallelism"):
-        cli_preprocess.main(["esm", "--lmdb", str(root), "--esm-weights",
-                             sd, "--esm-dp", "2", "--device", "cpu"])
+    # --esm-dp 2: two CPU replicas of the encoder write the same rows
+    root2 = tmp_path / "store2"
+    shutil.copytree(stores["base"], root2)
+    cli_preprocess.main(["esm", "--lmdb", str(root2), "--esm-weights", sd,
+                         "--esm-batch", "2", "--esm-dp", "2", "--device",
+                         "cpu"])
+    with open_kv(str(root2 / "dataset" / "processed"
+                     / "esm2_t33_650M_UR50D.lmdb")).begin() as txn:
+        rows2 = {bytes(k): pickle.loads(v) for k, v in txn.cursor()}
+    assert sorted(rows2) == sorted(rows)
+    for k in rows:
+        np.testing.assert_allclose(rows2[k], rows[k], atol=1e-5, rtol=0)
 
 
 # ---- the drivers -------------------------------------------------------------

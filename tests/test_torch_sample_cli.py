@@ -149,8 +149,9 @@ def test_cli_sample_matches_jax(setup, tmp_path):
 
 def test_cli_sample_seeded_and_refusals(setup, tmp_path, monkeypatch):
     """With dropout, recycle draws and DBSCAN centers on, the same seed
-    gives the same metrics (and the fixed pocket mode runs); --dp and a
-    missing CUDA device refuse."""
+    gives the same metrics (and the fixed pocket mode runs); --dp 2 (two
+    CPU replicas) gives dp=1's metrics; a batch size --dp does not divide
+    and a missing CUDA device refuse."""
     root, data, ckpt, _, _, _, _ = setup
     argv = ["--ckpt", ckpt, "--data", data, "--sample-size", "2",
             "--batch-size", "2"] + _sets(CLI_SETS) + ["--device", "cpu"]
@@ -158,8 +159,12 @@ def test_cli_sample_seeded_and_refusals(setup, tmp_path, monkeypatch):
     assert a == b and a["n"] == 5 and a["sample_size"] == 2
     c = sample.main(argv + ["--seed", "1", "--pocket-mode", "fixed"])
     assert set(c) == set(a) and np.isfinite(c["rmsd_mean"])
-    with pytest.raises(SystemExit, match="--dp"):
-        sample.main(argv + ["--dp", "2"])
+    d = sample.main(argv + ["--dp", "2"])
+    assert set(d) == set(a) and d["n"] == a["n"]
+    for k, v in a.items():
+        assert abs(d[k] - v) <= 1e-5, (k, d[k], v)
+    with pytest.raises(SystemExit, match="not divisible by --dp 3"):
+        sample.main(argv + ["--dp", "3"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         sample.main(argv[:-2])

@@ -314,9 +314,21 @@ def test_cli_serve_refuses_what_is_not_ported(monkeypatch):
     (pose,) = eng.dock_raw([make_raw(n=5, nr=20, seed=1)])
     assert pose.error is None
     assert len(pose.pocket_coords) == len(pose.pocket_residues) > 0
-    for flag in (["--dp", "2"], ["--exported", "x"]):
-        with pytest.raises(SystemExit):
-            cs.main(flag + ["--device", "cpu"] + _TINY_SET)
+    # --dp 2 serves one engine over two CPU replicas, as dp=1 does
+    cs.main(["--dp", "2", "--no-bf16", "--device", "cpu"] + _TINY_SET)
+    eng2 = captured["engine"]
+    cs.main(["--no-bf16", "--device", "cpu"] + _TINY_SET)
+    raws = [make_raw(n=5 + i, nr=20, seed=i) for i in range(3)]
+    assert len(eng2.devices) == 2
+    for a, b in zip(eng2.dock_raw(raws), captured["engine"].dock_raw(raws)):
+        assert a.error is None and b.error is None
+        np.testing.assert_allclose(a.coords, b.coords, atol=1e-5, rtol=0)
+    # an artifact serves on one device: --dp is refused with --exported,
+    # and so is a model flag
+    for flag in (["--exported", "x", "--dp", "2"], ["--exported", "x"]):
+        with pytest.raises(SystemExit, match="--exported bakes"):
+            cs.main(flag + ["--device", "cpu"]
+                    + (_TINY_SET if flag[-1] == "x" else []))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         cs.main(_TINY_SET)
