@@ -188,7 +188,21 @@ Phases, each of which raises on failure (non-zero exit):
      mapped kernel at the half batch beside the unmapped one, its plain
      version, torch.rand + torch.where and its bound; one against two
      replicas in turns (batch ms, dock_raw complexes/s), best-of-8
-     complexes/s, the ranks' launch seconds, the phase's wall time.
+     complexes/s, the ranks' launch seconds, the phase's wall time;
+ 15. the ablation and extra configurations of preset `fabind` at released
+     width (ABLATION_CONFIGS: keep_trig_attn, both no-attention stacks,
+     the implicit pair embedding without the cross attention layer, no
+     pair bias, opm, use_esm2_feat=False and esm2_concat_raw, the last two
+     on the 32 requests with seeded N/C/O around each CA), each served by
+     a bf16 and an fp32 engine of seeded weights over the 32 requests:
+     one finite pose per request, the gate launched 33 times per batch (0
+     for the no-attention stacks), each bucket's first batch again with
+     the plain gate (phase 3's bounds); one fp32 Trainer step per EGNN
+     stack type at dropout 0.1 (keep_trig_attn, ablation_no_attention,
+     ablation_no_attention_with_cross_attn): finite, not skipped, gate and
+     dropout launches as the modules predict (DropoutDraws). Printed: batch
+     ms per bucket, bf16 vs fp32 distance, peak memory, the phase's wall
+     time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -247,6 +261,7 @@ from fabind_tpu_torch.data.featurize import (THREE_TO_ONE,
 from fabind_tpu_torch.data.types import FABindBatch
 from fabind_tpu_torch.models import layers
 from fabind_tpu_torch.models.att_model import EfficientMCAttModel
+from fabind_tpu_torch.models.egnn import MCAttEGNN
 from fabind_tpu_torch.models.esm2 import (PAD_ID, Esm2Config, Esm2Model,
                                          load_esm2, tokenize)
 from fabind_tpu_torch.models.fabind import init_params, make_model
@@ -440,6 +455,30 @@ DP_LOSS_RTOL = 1e-4
 DP_POSE_MAX_A = 1e-3
 # best-of winners counted as the one-replica engine's (bf16, printed)
 DP_SAME_WINNER_A = 0.05
+# ablation and extra configurations (phase 15): each on top of preset
+# fabind at released width; the no-attention stacks never reach the gate
+ABLATION_CONFIGS = (
+    ("keep_trig_attn", dict(keep_trig_attn=True)),
+    ("ablation_no_attention", dict(ablation_no_attention=True)),
+    ("ablation_no_attention_with_cross_attn",
+     dict(ablation_no_attention_with_cross_attn=True)),
+    ("implicit_pair", dict(explicit_pair_embed=False,
+                           add_cross_attn_layer=False)),
+    ("no_attn_pair_bias", dict(add_attn_pair_bias=False)),
+    ("opm", dict(add_cross_attn_layer=False, opm=True)),
+    ("gvp", dict(use_esm2_feat=False)),
+    ("esm2_concat_raw", dict(esm2_concat_raw=True)),
+)
+ABLATION_GATE_FREE = ("ablation_no_attention",
+                      "ablation_no_attention_with_cross_attn")
+# one fp32 training step per EGNN stack type, dropout on
+ABLATION_TRAIN = ("keep_trig_attn", "ablation_no_attention",
+                  "ablation_no_attention_with_cross_attn")
+ABLATION_DROPOUT = 0.1
+ABLATION_ROOT = Path("build/chip_smoke_ablation")
+# seeded N/C/O around each CA of the requests (the GVP configurations)
+BACKBONE_SEED = 15
+BACKBONE_JITTER_A = 0.2
 
 
 def check(ok: bool, what: str) -> None:
@@ -3787,6 +3826,191 @@ def dp_dropout_rows(times, drop_paths) -> list:
     return rows
 
 
+def backbone_requests(raws, seed: int):
+    """The requests with protein_full_coords [Nr, 4, 3]: N, CA, C, O at
+    BACKBONE_OFFSETS from each CA plus seeded jitter (CA exact)."""
+    rng = np.random.RandomState(seed)
+    offsets = np.array([BACKBONE_OFFSETS[a] for a in ("N", "CA", "C", "O")],
+                       np.float32)
+    out = []
+    for raw in raws:
+        ca = raw["protein_xyz"]
+        full = (ca[:, None] + offsets[None]
+                + BACKBONE_JITTER_A * rng.randn(len(ca), 4, 3))
+        full[:, 1] = ca
+        out.append(dict(raw, protein_full_coords=full.astype(np.float32)))
+    return out
+
+
+def ablation_requests(cfg, raws, full):
+    """What a user of the configuration sends: the GVP configurations'
+    requests carry the backbone, and without ESM2 features no esm_feat."""
+    if cfg.model.use_esm2_feat and not cfg.model.esm2_concat_raw:
+        return raws
+    if cfg.model.esm2_concat_raw:
+        return full
+    return [{k: v for k, v in r.items() if k != "esm_feat"} for r in full]
+
+
+def ablation_serving(name, cfg, reqs, buckets, card_line):
+    """bf16 and fp32 engines of one configuration over the requests: the
+    main path with its gate launches per batch (33, or 0 for the
+    no-attention stacks), each bucket's first batch again with the plain
+    gate (bf16: mean per-atom distance within phase 3's bound; fp32: max
+    coordinate difference within POSE_TOL_A), batch ms per bucket, peak
+    memory, bf16 vs fp32 distance. Returns {dtype: {bucket: launches}}."""
+    per_batch = 0 if name in ABLATION_GATE_FREE else sum(
+        s[-1] for s in served_pair_shapes(cfg))
+    launches, poses = {}, {}
+    for dtype in DTYPES:
+        tag = str(dtype)[6:]
+        what = f"ablation {name} {tag}"
+        held = reset_peak()
+        engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH,
+                               bf16=dtype == torch.bfloat16, seed=0)
+        poses[dtype], counter, _, first_s = serve_main_path(
+            engine, reqs, what, per_batch=per_batch)
+        launches[dtype] = counter.launches
+        for label, cfg_b, batch in first_batches(engine, route(engine, reqs)):
+            ms = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = engine.run_batch(batch, cfg_b)[0]
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            line = (f"time {what} model batch bucket {label} ({BATCH} "
+                    f"complexes): median {statistics.median(ms):.2f} ms of "
+                    f"{[round(m, 2) for m in ms]}")
+            if per_batch:
+                plain = run_plain_gate(engine, batch, cfg_b)[0]
+                d = batch_dist(out, plain, batch)
+                if dtype == torch.bfloat16:
+                    line += (f"; kernel vs plain gate per-atom distance mean "
+                             f"{d.mean():.3e} A (limit "
+                             f"{BF16_POSE_MEAN_TOL_A} A)")
+                    check(d.mean() <= BF16_POSE_MEAN_TOL_A,
+                          f"{what} kernel vs plain gate mean {d.mean()} A")
+                else:
+                    diff = (out - plain).abs().max().item()
+                    line += (f"; kernel vs plain gate max coordinate "
+                             f"difference {diff:.3e} A (limit {POSE_TOL_A} "
+                             f"A)")
+                    check(diff <= POSE_TOL_A,
+                          f"{what} kernel vs plain gate {diff} A")
+            print(line + f" [{card_line}]")
+        print(f"time {what} dock_raw first call: {first_s:.3f} s "
+              f"[{card_line}]")
+        print_peak(what, held, card_line)
+        del engine
+        torch.cuda.empty_cache()
+    d = pose_dist(poses[torch.bfloat16], poses[torch.float32])
+    moved = [float(np.linalg.norm(a.coords.mean(0) - b.coords.mean(0)))
+             for a, b in zip(poses[torch.bfloat16], poses[torch.float32])]
+    print(f"ablation {name} bf16 vs fp32 engine, {len(d)} atoms: per-atom "
+          f"distance mean {d.mean():.3f} A, max {d.max():.3f} A; "
+          f"{sum(m > 4.0 for m in moved)} of {len(moved)} ligand centroids "
+          f"more than 4 A apart (another pocket), largest "
+          f"{max(moved):.3f} A (printed, not gated)")
+    return launches
+
+
+class DropoutDraws:
+    """While open, predicts the dropout kernel's launches from the modules:
+    each active Dropout forward launches once, and once more in the
+    backward when its output receives a gradient (a hook on the output
+    counts those). Also records the gate launches each recycle round of an
+    attention stack predicts (one per InterAttention layer)."""
+
+    def __enter__(self):
+        self.forward = self.backward = self.gate = 0
+        probe = self
+        self.orig = (layers.Dropout.forward, EfficientMCAttModel._step)
+
+        def forward(mod, x, call=0):
+            y = probe.orig[0](mod, x, call)
+            if mod.active:
+                probe.forward += 1
+                if y.requires_grad:
+                    y.register_hook(probe._count_backward)
+            return y
+
+        def step(model, *a, **kw):
+            if isinstance(model.gnn, MCAttEGNN) and not model.cfg.is_plus:
+                probe.gate += model.gnn.n_layers
+            return probe.orig[1](model, *a, **kw)
+
+        layers.Dropout.forward, EfficientMCAttModel._step = forward, step
+        return self
+
+    def _count_backward(self, grad):
+        self.backward += 1
+
+    def __exit__(self, *exc):
+        layers.Dropout.forward, EfficientMCAttModel._step = self.orig
+
+
+def ablation_train_step(name, cfg, data, buckets, card_line):
+    """One fp32 Trainer step of a configuration at dropout 0.1 (recycle
+    count drawn) on the large bucket's first batch: finite and not
+    skipped, gate and dropout launches as DropoutDraws predicts. Returns
+    (gate launches, dropout launches) as {dtype: {bucket: launches}}."""
+    large = bucket_label(buckets[-1])
+    batch, cfg_b = first_batch(data, cfg, buckets, large)
+    held = reset_peak()
+    tr = Trainer(cfg, "cuda")
+    torch.cuda.synchronize()
+    edge_gate.KERNEL.launches = dropout.KERNEL.launches = 0
+    t0 = time.perf_counter()
+    with DropoutDraws() as draws:
+        m = tr.train_step(batch, cfg_b)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    gate, drop = edge_gate.KERNEL.launches, dropout.KERNEL.launches
+    what = f"ablation train {name} fp32"
+    print(f"{what} step bucket {large}: loss {m['loss']:.6f}, "
+          f"{sec * 1e3:.2f} ms; gate launches {gate} (predicted "
+          f"{draws.gate}), dropout launches {drop} (predicted "
+          f"{draws.forward} forward + {draws.backward} backward) "
+          f"[{card_line}]")
+    print_peak(what, held, card_line)
+    check(m["skipped_nan"] == 0.0, f"{what}: skipped")
+    check(all(np.isfinite(v) for v in m.values()), f"{what}: {m}")
+    check(gate == draws.gate, f"{what}: {gate} gate launches")
+    check(draws.forward > 0 and drop == draws.forward + draws.backward,
+          f"{what}: {drop} dropout launches")
+    del tr
+    torch.cuda.empty_cache()
+    return ({torch.float32: {large: gate}}, {torch.float32: {large: drop}})
+
+
+def ablation_phase(raws, buckets, card_line):
+    """Phase 15: the ablation and extra configurations (ABLATION_CONFIGS)
+    served at released width in bf16 and fp32 over the 32 requests (the
+    GVP ones with a seeded backbone), and one fp32 training step per EGNN
+    stack type. Returns (gate launches by path, dropout launches by path),
+    each a list of (name prefix, {dtype: {bucket: launches}})."""
+    t_phase = time.perf_counter()
+    full = backbone_requests(raws, BACKBONE_SEED)
+    gate_paths, drop_paths = [], []
+    for name, flags in ABLATION_CONFIGS:
+        cfg = preset("fabind", **flags, **SMOKE_SHAPES)
+        reqs = ablation_requests(cfg, raws, full)
+        gate_paths.append((f"ablation {name} ", ablation_serving(
+            name, cfg, reqs, buckets, card_line)))
+    data = write_npz_dir(raws, ABLATION_ROOT / "data")
+    for name in ABLATION_TRAIN:
+        cfg = preset("fabind", dropout=ABLATION_DROPOUT,
+                     **dict(ABLATION_CONFIGS)[name], **SMOKE_SHAPES)
+        gate, drop = ablation_train_step(name, cfg, data, buckets, card_line)
+        gate_paths.append((f"ablation train {name} ", gate))
+        drop_paths.append((f"ablation train {name} ", drop))
+    shutil.rmtree(ABLATION_ROOT, ignore_errors=True)
+    print(f"time ablation phase wall: {time.perf_counter() - t_phase:.1f} s "
+          f"[{card_line}]")
+    return gate_paths, drop_paths
+
+
 def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
     """Kernel and plain times at each bucket's shapes, in each dtype: one
     JSON row per (dtype, bucket), means per launch weighted by the launches
@@ -4013,6 +4237,10 @@ def main(argv=None) -> int:
     dp_gate, dp_drop, dp_times = dp_phase(raws, by_bucket, buckets, poses,
                                           poses32, card_line)
 
+    # ---- 15. the ablation and extra configurations
+    torch.cuda.empty_cache()
+    ablation_gate, ablation_drop = ablation_phase(raws, buckets, card_line)
+
     # ---- 4b. kernel times
     rows = time_kernel_rows(
         served, max_err,
@@ -4023,11 +4251,11 @@ def main(argv=None) -> int:
          ("evaluate store ", store_eval_launches),
          ("exported sampling ", gate_sampling)]
         + [(f"fabflex {path}", counts)
-           for path, counts in flex_launches.items()] + dp_gate,
-        sms, clock_hz, card_line)
+           for path, counts in flex_launches.items()] + dp_gate
+        + ablation_gate, sms, clock_hz, card_line)
     rows += dropout_rows(time_dropout(sampling_buckets, card_line), drop_err,
                          [("exported sampling ", drop_exported),
-                          ("sampling ", drop_live)])
+                          ("sampling ", drop_live)] + ablation_drop)
     rows += dp_dropout_rows(dp_times, dp_drop)
     print(f"time chip_smoke total wall: {time.perf_counter() - t_start:.1f} s "
           f"[{card_line}]")

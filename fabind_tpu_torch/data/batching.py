@@ -3,10 +3,10 @@
 Own copy of fabind_tpu/data/batching.py: `build_sample` turns one raw
 complex into unpadded arrays in the protein-mean frame (for the train group
 with the noisy pocket crop, torsion noise and a random rotation),
-`collate` pads and stacks samples into the FABindBatch field arrays. The
-geometric (non-ESM) protein features raise NotImplementedError: they are
-ported with the featurization slice, as is the JAX package's C collator
-(fabind_tpu/data/native.py).
+`collate` pads and stacks samples into the FABindBatch field arrays. With
+use_esm2_feat=False or esm2_concat_raw the protein features are (or end
+with) the 15-d geometric ones of featurize.protein_gvp_features. The JAX
+package's C collator (fabind_tpu/data/native.py) is not ported.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from fabind_tpu_torch.config import FABindConfig
+from fabind_tpu_torch.data.featurize import protein_gvp_features
 from fabind_tpu_torch.data.torsion import randomize_torsions
 
 
@@ -165,11 +166,20 @@ def build_sample(raw: Dict[str, np.ndarray], cfg: FABindConfig,
     if m.use_esm2_feat and not m.esm2_concat_raw:
         prot_feat = np.asarray(raw["esm_feat"], np.float32)
     else:
-        # 15-d geometric features (fabind_tpu/data/featurize.py
-        # protein_gvp_features) are not ported yet
-        raise NotImplementedError(
-            "use_esm2_feat=False / esm2_concat_raw protein features are not "
-            "ported yet (ROADMAP queue 1, GVP protein features)")
+        # the 15-d geometric features need the four backbone atoms
+        # (protein_full_coords, written by cli.preprocess and carried by the
+        # engine's structure-file path); the reference's LMDB store holds CA
+        # only
+        if raw.get("protein_full_coords") is None:
+            raise KeyError(
+                "use_esm2_feat=False/esm2_concat_raw need protein_full_coords "
+                "[Nr,4,3] in the sample (produced by cli.preprocess)")
+        gvp = protein_gvp_features(raw["protein_full_coords"])
+        if m.esm2_concat_raw:   # [esm 1280 ++ gvp 15]
+            prot_feat = np.concatenate(
+                [np.asarray(raw["esm_feat"], np.float32), gvp], axis=1)
+        else:
+            prot_feat = gvp
 
     return {
         "lig_feat": np.asarray(raw["lig_feats"], np.float32),

@@ -10,7 +10,11 @@ Own copy of the pure-Python part of fabind_tpu/data/featurize.py:
   `featurize_sdf`, `write_sdf`, `sdf_string`), whose rings come from an own
   copy of networkx's `cycle_basis` (`_cycle_basis`);
 - ESM2 residue embeddings from the port's encoder
-  (`extract_esm_feature(s)`, models/esm2.py).
+  (`extract_esm_feature(s)`, models/esm2.py);
+- the 15-d geometric residue features of the non-ESM protein input
+  (`protein_gvp_features`), the chain filter of dataset construction
+  (`select_chain_within_cutoff`) and the ligand's binned pair-distance
+  one-hot (`compound_pair_dis_distribution`).
 
 The RDKit paths of the JAX package (SMILES, conformer generation,
 canonical renumbering) are not here: a SMILES request fails with the JAX
@@ -482,3 +486,114 @@ def extract_esm_features(seqs: Sequence[str], model,
     on each of `dp` encoder replicas (models.esm2.Esm2Model
     .embed_sequences)."""
     return model.embed_sequences(list(seqs), batch_size=batch_size, dp=dp)
+
+
+def select_chain_within_cutoff(pdb_path: str, lig_coords: np.ndarray,
+                               cutoff: float, out_path: str) -> List[str]:
+    """Keep only the protein chains with an atom of a clean residue within
+    `cutoff` of the ligand and write the filtered PDB (a dataset
+    construction helper, feature_utils.py:379-412). Returns the kept chain
+    ids, sorted.
+
+    The contact test reads every atom of the standard residues that have a
+    CA; the output keeps every ATOM/HETATM/TER record of the kept chains,
+    and every other record."""
+    lig = np.asarray(lig_coords, np.float32)
+    res_has_ca: Dict[Tuple, bool] = {}
+    res_atoms: Dict[Tuple, List] = {}
+    with open(pdb_path) as f:
+        src_lines = f.readlines()
+    for line in src_lines:
+        if line[:6] != "ATOM  " or line[17:20].strip() not in THREE_TO_ONE:
+            continue
+        key = (line[21], line[22:26], line[26])
+        try:
+            xyz = (float(line[30:38]), float(line[38:46]),
+                   float(line[46:54]))
+        except ValueError:
+            continue
+        res_atoms.setdefault(key, []).append(xyz)
+        if line[12:16].strip() == "CA":
+            res_has_ca[key] = True
+    chains_atoms: Dict[str, List] = {}
+    for key, atoms in res_atoms.items():
+        if res_has_ca.get(key):
+            chains_atoms.setdefault(key[0], []).extend(atoms)
+    cut2 = float(cutoff) ** 2
+    keep = set()
+    for chain, atoms in chains_atoms.items():
+        a = np.asarray(atoms, np.float32)
+        if (((a[:, None, :] - lig[None, :, :]) ** 2).sum(-1) < cut2).any():
+            keep.add(chain)
+    with open(out_path, "w") as f:
+        for line in src_lines:
+            rec = line[:6]
+            if rec in ("ATOM  ", "HETATM") or rec.startswith("TER"):
+                # a short "TER" record has no chain column
+                chain = line[21] if len(line) > 21 else ""
+                if chain and chain not in keep:
+                    continue
+            f.write(line)
+    return sorted(keep)
+
+
+def _unit(v: np.ndarray, eps: float = 1e-8) -> np.ndarray:
+    return v / np.maximum(np.linalg.norm(v, axis=-1, keepdims=True), eps)
+
+
+def protein_gvp_features(coords: np.ndarray) -> np.ndarray:
+    """15-d geometric residue features, the protein input without ESM2
+    (the gvp-pytorch node features of feature_utils.py:235-260), ordered
+    [node_s (6) ++ node_v flattened (9)]:
+    - node_s: cos and sin of the backbone dihedrals phi, psi, omega;
+    - node_v: the forward and backward CA unit vectors and the imputed
+      side-chain direction from the N-CA-C frame.
+
+    coords: [N, 4, 3] (N, CA, C, O per residue) -> [N, 15] float32."""
+    coords = np.asarray(coords, np.float32)
+    n_res = coords.shape[0]
+    eps = 1e-7
+
+    # dihedrals over the chained N-CA-C backbone
+    X = coords[:, :3].reshape(-1, 3)                      # [3N, 3]
+    U = _unit(X[1:] - X[:-1])
+    u2, u1, u0 = U[:-2], U[1:-1], U[2:]
+    n2 = _unit(np.cross(u2, u1))
+    n1 = _unit(np.cross(u1, u0))
+    cos_d = np.clip(np.sum(n2 * n1, -1), -1 + eps, 1 - eps)
+    D = np.sign(np.sum(u2 * n1, -1)) * np.arccos(cos_d)
+    D = np.pad(D, (1, 2)).reshape(n_res, 3)
+    node_s = np.concatenate([np.cos(D), np.sin(D)], axis=1)        # [N, 6]
+
+    ca = coords[:, 1]
+    fwd = np.pad(_unit(ca[1:] - ca[:-1]), ((0, 1), (0, 0)))
+    bwd = np.pad(_unit(ca[:-1] - ca[1:]), ((1, 0), (0, 0)))
+
+    # the imputed side chain (CB) direction
+    n_at, origin, c_at = coords[:, 0], coords[:, 1], coords[:, 2]
+    c_v, n_v = _unit(c_at - origin), _unit(n_at - origin)
+    bisector = _unit(c_v + n_v)
+    perp = _unit(np.cross(c_v, n_v))
+    side = -bisector * np.sqrt(1 / 3) - perp * np.sqrt(2 / 3)
+
+    node_v = np.stack([fwd, bwd, side], axis=1)                    # [N, 3, 3]
+    return np.concatenate([node_s, node_v.reshape(n_res, 9)],
+                          axis=1).astype(np.float32)
+
+
+def compound_pair_dis_distribution(coords: np.ndarray,
+                                   las_mask: Optional[np.ndarray] = None
+                                   ) -> np.ndarray:
+    """16-bin one-hot of the ligand's pairwise distances
+    (feature_utils.py:139-154): 1 A bins from -0.5, clamped at 15; with
+    `las_mask`, pairs outside the LAS constraint go to the last bin and the
+    diagonal to bin 0. [n, n, 16] float32; no model reads it (a field of
+    the reference's preprocessed ligand records)."""
+    coords = np.asarray(coords, np.float64)
+    d = np.linalg.norm(coords[:, None, :] - coords[None, :, :], axis=-1)
+    if las_mask is not None:
+        d = np.where(np.asarray(las_mask, bool), d, 15.0)
+        np.fill_diagonal(d, 0.0)
+    d = np.minimum(d, 15.0)
+    idx = np.floor((d + 0.5) / 1.0).astype(np.int64)
+    return np.eye(16, dtype=np.float32)[idx]

@@ -6,6 +6,8 @@ Counterpart of fabind_tpu/models/egnn.py:
   radial term; the two global tokens are aggregated in a dense side branch.
 - `InterAttention`: dense masked bipartite attention between ligand and
   pocket; its coordinate gate runs through the edge-gate kernel.
+- `BipartiteEGCL` and `MCnoAttEGNN`: the no-attention ablation stacks,
+  whose inter layers are EGCLs over the ligand-pocket edges.
 - `MCAttEGNN`: the layer stack with the in-loop LAS projection. With
   cfg.remat each EGCL and InterAttention is recomputed in the backward
   (torch.utils.checkpoint), as the JAX package's `nn.remat` layers are; its
@@ -21,7 +23,7 @@ All coordinates here are normalized (divided by coordinate_scale).
 from __future__ import annotations
 
 import copy
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +32,8 @@ from torch.utils.checkpoint import checkpoint
 
 from fabind_tpu_torch.config import ModelConfig
 from fabind_tpu_torch.models.cross_att import CrossAttentionModule
-from fabind_tpu_torch.models.layers import (Dropout, MLPBlock,
-                                            active_stochastic,
+from fabind_tpu_torch.models.layers import (Dropout, InteractionModule,
+                                            MLPBlock, active_stochastic,
                                             enter_stochastic)
 from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, safe_sqrt
@@ -209,23 +211,61 @@ class EGCL(nn.Module):
         return h + out, x_out
 
 
+def add_trio_encoder(mod: nn.Module, cfg: ModelConfig, hidden: int) -> None:
+    """Give `mod` the trio encoder's modules (reference names):
+    cross_attn_module with cfg.add_cross_attn_layer, else inter_layer (an
+    InteractionModule, outer-product with cfg.opm), and attn_bias_proj."""
+    if cfg.add_cross_attn_layer:
+        mod.cross_attn_module = CrossAttentionModule(
+            hidden, rm_layernorm=cfg.rm_layernorm, dropout_rate=cfg.dropout,
+            is_plus=cfg.is_plus, mlp_hidden_scale=cfg.mlp_hidden_scale,
+            use_ln_mlp=cfg.use_ln_mlp, mha_heads=cfg.mha_heads,
+            keep_trig_attn=cfg.keep_trig_attn)
+    else:
+        mod.inter_layer = InteractionModule(hidden, hidden, hidden, hidden,
+                                            rm_layernorm=cfg.rm_layernorm,
+                                            opm=cfg.opm)
+    mod.attn_bias_proj = nn.Linear(hidden, 1)
+
+
+def trio_encoder(mod: nn.Module, h: Tensor, gi: GraphInputs,
+                 pair_embed: Optional[Tensor], pair_mask: Optional[Tensor],
+                 p_p_dist_embed: Optional[Tensor],
+                 c_c_dist_embed: Optional[Tensor], call: int = 0):
+    """The pair update before an inter layer, with the modules
+    add_trio_encoder gave `mod`: the cross attention updates both sides and
+    the pair; the InteractionModule's pair is added to the entry pair
+    under cfg.explicit_pair_embed, else it is the pair. `call` indexes the cross attention's dropout draws in
+    the round. Returns (h, pair_embed)."""
+    cfg = mod.cfg
+    layout = gi.layout
+    p_mask_side, c_mask_side = gi.side_masks()
+    p_side = h[:, layout.pside_slice]
+    c_side = h[:, layout.cside_slice]
+    if cfg.add_cross_attn_layer:
+        p_side, c_side, pair_embed = mod.cross_attn_module(
+            p_side, p_mask_side, c_side, c_mask_side, pair_embed, pair_mask,
+            p_p_dist_embed, c_c_dist_embed, call)
+        return torch.cat([c_side, p_side], dim=1), pair_embed
+    upd, _ = mod.inter_layer(p_side, c_side, p_mask_side, c_mask_side)
+    return h, (pair_embed + upd if cfg.explicit_pair_embed else upd)
+
+
 class InterAttention(nn.Module):
-    """Interfacial attention on the bipartite ligand-pocket graph."""
+    """Interfacial attention on the bipartite ligand-pocket graph. With
+    cfg.add_attn_pair_bias a trio encoder first updates the pair embedding
+    (the cross attention, or without cfg.add_cross_attn_layer an
+    InteractionModule over the sides, added to the entry pair under
+    cfg.explicit_pair_embed), whose projection biases both directions'
+    logits; without it there is no bias and the pair passes through."""
 
     def __init__(self, cfg: ModelConfig, hidden: int, coord_max: float):
         super().__init__()
-        if not (cfg.add_attn_pair_bias and cfg.add_cross_attn_layer):
-            raise NotImplementedError(
-                "InterAttention without the cross-attention pair bias is "
-                "ported with the ablation slice")
         self.cfg = cfg
         self.hidden = hidden
         self.coord_max = coord_max
-        self.cross_attn_module = CrossAttentionModule(
-            hidden, rm_layernorm=cfg.rm_layernorm, dropout_rate=cfg.dropout,
-            is_plus=cfg.is_plus, mlp_hidden_scale=cfg.mlp_hidden_scale,
-            use_ln_mlp=cfg.use_ln_mlp, mha_heads=cfg.mha_heads)
-        self.attn_bias_proj = nn.Linear(hidden, 1)
+        if cfg.add_attn_pair_bias:
+            add_trio_encoder(self, cfg, hidden)
         self.linear_q = nn.Linear(hidden, hidden)
         # torch Linear(1+C -> 2C) on cat([radial, h]), split at runtime in
         # interleaved order (k = kv[..., 0::2], v = kv[..., 1::2])
@@ -246,18 +286,19 @@ class InterAttention(nn.Module):
         self.dropout = Dropout(cfg.dropout)
 
     def forward(self, h: Tensor, x: Tensor, adj: Tensor, gi: GraphInputs,
-                pair_embed: Tensor, pair_mask: Tensor):
+                pair_embed: Optional[Tensor], pair_mask: Optional[Tensor],
+                p_p_dist_embed: Optional[Tensor] = None,
+                c_c_dist_embed: Optional[Tensor] = None):
         cfg = self.cfg
         layout = gi.layout
 
-        # trio encoder: cross attention updates both sides and the pair
-        p_mask_side, c_mask_side = gi.side_masks()
-        p_side, c_side, pair_embed = self.cross_attn_module(
-            h[:, layout.pside_slice], p_mask_side,
-            h[:, layout.cside_slice], c_mask_side, pair_embed, pair_mask)
-        h = torch.cat([c_side, p_side], dim=1)
-        # one pair-bias cell (p, c) serves both edge directions
-        pair_bias_pc = self.attn_bias_proj(pair_embed)[..., 0][:, 1:, 1:]
+        pair_bias_pc = None
+        if cfg.add_attn_pair_bias:
+            h, pair_embed = trio_encoder(
+                self, h, gi, pair_embed, pair_mask, p_p_dist_embed,
+                c_c_dist_embed)
+            # one pair-bias cell (p, c) serves both edge directions
+            pair_bias_pc = self.attn_bias_proj(pair_embed)[..., 0][:, 1:, 1:]
 
         # radial over inter edges
         x_l = x[:, layout.lig_slice]
@@ -294,7 +335,9 @@ class InterAttention(nn.Module):
             sum_s t (x_d - x_s) is (sum_s t) x_d - t @ x_s; `call` is the
             direction's index in the coord MLP's dropout keys."""
             logits = torch.einsum("bdc,bsc->bds", q_d, k_node_s)
-            logits = logits + r_ds * (q_d @ k_r)[..., None] + bias_ds
+            logits = logits + r_ds * (q_d @ k_r)[..., None]
+            if bias_ds is not None:
+                logits = logits + bias_ds
             A = _masked_softmax(logits, adj_ds, dim=-1)
             agg = torch.einsum("bds,bsc->bdc", A, v_node_s)
             agg = agg + (A * r_ds).sum(-1)[..., None] * v_r
@@ -307,7 +350,8 @@ class InterAttention(nn.Module):
             return agg, dx
 
         agg_l, dx_l = direction(q[:, lig], k_node[:, pkt], v_node[:, pkt],
-                                r, adj, pair_bias_pc.transpose(1, 2),
+                                r, adj, None if pair_bias_pc is None
+                                else pair_bias_pc.transpose(1, 2),
                                 x_l, x_p, phi_l, 0)
         agg_p, dx_p = direction(q[:, pkt], k_node[:, lig], v_node[:, lig],
                                 r.transpose(1, 2), adj.transpose(1, 2),
@@ -365,8 +409,12 @@ class MCAttEGNN(nn.Module):
                           preserve_rng_state=False)
 
     def forward(self, h: Tensor, x: Tensor, gi: GraphInputs,
-                pair_embed: Tensor, pair_mask: Tensor, intra_cutoff: float,
-                inter_cutoff: float, ctx_k: int):
+                pair_embed: Optional[Tensor], pair_mask: Optional[Tensor],
+                intra_cutoff: float, inter_cutoff: float, ctx_k: int,
+                p_p_dist_embed: Optional[Tensor] = None,
+                c_c_dist_embed: Optional[Tensor] = None):
+        """Returns (h, x, pair_embed). The distance embeddings feed the
+        triangle attention (cfg.keep_trig_attn)."""
         cfg = self.cfg
         layout = gi.layout
         las_clamp = cfg.normalize(15.0)
@@ -390,7 +438,7 @@ class MCAttEGNN(nn.Module):
             x = maybe_fix(x, x_new)
             h, x_new, pair_new = self._run_layer(
                 self._modules[f"att_{i}"], h, x, adj, gi, pair_embed,
-                pair_mask)
+                pair_mask, p_p_dist_embed, c_c_dist_embed)
             # FABind+ threads the updated pair embedding through the stack;
             # base discards it, so every layer biases off the entry pair
             if cfg.is_plus:
@@ -404,6 +452,154 @@ class MCAttEGNN(nn.Module):
                 x = layout.with_lig(x, x_l)
 
         h, x_new = self._run_layer(self.out_layer, h, x, ctx, gi)
+        x = maybe_fix(x, x_new)
+        h = self.linear_out(self.dropout_out(h))
+        return h, x, pair_embed
+
+
+class BipartiteEGCL(nn.Module):
+    """The EGCL evaluated on the inter edges (the no-attention ablations'
+    `att_{i}` layers): messages flow ligand -> pocket and pocket -> ligand
+    over the dense bipartite adjacency, with the ctx EGCL's MLPs and
+    parameter names. The global tokens get no message and run the residual
+    node MLP on a zero aggregate. The edge MLP's first linear is decomposed
+    as in EGCL, per node (FABind+'s LayerNorm form through
+    MLPBlock.ln_l1_parts). Dropout calls: the two directions are 0 and 1,
+    base's node output 2."""
+
+    def __init__(self, cfg: ModelConfig, hidden: int, coord_max: float):
+        super().__init__()
+        self.cfg = cfg
+        self.coord_max = coord_max
+        self.edge_mlp, self.node_mlp, self.coord_mlp = _egcl_mlps(
+            cfg, hidden, 2 * hidden + 1)
+        self.dropout = Dropout(cfg.dropout)
+
+    def forward(self, h: Tensor, x: Tensor, adj: Tensor, gi: GraphInputs):
+        cfg = self.cfg
+        layout = gi.layout
+        lig, pkt = layout.lig_slice, layout.pkt_slice
+        C = h.shape[-1]
+        x_l, x_p = x[:, lig], x[:, pkt]
+        diff_lp = x_l[:, :, None, :] - x_p[:, None, :, :]    # [B, Nc, Np, 3]
+        r = (diff_lp * diff_lp).sum(-1)
+        # both edge directions share the radial: a factor 2 in the F-norm
+        div = _norm_div(2.0 * torch.where(adj, r * r, 0.0).sum((1, 2)), cfg)
+        r_n = r / div[:, None, None]
+
+        if cfg.is_plus and cfg.use_ln_mlp:
+            parts = self.edge_mlp.ln_l1_parts(h)
+            s_proj = F.linear(h, parts.w_src)                 # per node
+
+            def messages(dst, src, radial, call):
+                pre = self.edge_mlp.ln_l1_edges(
+                    parts, parts.a[:, dst][:, :, None],
+                    parts.t[:, dst][:, :, None], parts.q[:, dst][:, :, None],
+                    h[:, src][:, None], radial, s_proj[:, src][:, None])
+                return self.edge_mlp.finish(pre, call)
+        else:
+            w1 = self.edge_mlp.lin1.weight                    # [H, 2C+1]
+            a = F.linear(h, w1[:, :C], self.edge_mlp.lin1.bias)
+            s_proj = F.linear(h, w1[:, C:2 * C])
+            w_r = w1[:, 2 * C]
+
+            def messages(dst, src, radial, call):
+                m = self.edge_mlp.finish(
+                    a[:, dst][:, :, None] + s_proj[:, src][:, None]
+                    + radial[..., None] * w_r, call)
+                return m if cfg.is_plus else self.dropout(m, call)
+
+        msg_l = messages(lig, pkt, r_n, 0)                    # [B, Nc, Np, H]
+        msg_p = messages(pkt, lig, r_n.transpose(1, 2), 1)    # [B, Np, Nc, H]
+
+        def coord_agg(msg, diff, mask, call):
+            w = self.coord_mlp.scalar_call(msg, call)[..., None]
+            t = diff * w * mask[..., None].to(diff.dtype)
+            cnt = mask.sum(-1, keepdim=True).clamp(min=1)
+            return t.sum(-2) / cnt.to(diff.dtype)
+
+        adj_t = adj.transpose(1, 2)
+        z_x = torch.zeros_like(x[:, 0])
+        dx = layout.assemble(z_x, coord_agg(msg_l, diff_lp, adj, 0), z_x,
+                             coord_agg(msg_p, -diff_lp.transpose(1, 2),
+                                       adj_t, 1))
+        x_out = x + dx.clamp(-self.coord_max, self.coord_max)
+
+        z_h = torch.zeros_like(msg_l[:, 0, 0])
+        agg = layout.assemble(
+            z_h, torch.einsum("bds,bdsc->bdc", adj.to(msg_l.dtype), msg_l),
+            z_h, torch.einsum("bds,bdsc->bdc", adj_t.to(msg_p.dtype), msg_p))
+        out = self.node_mlp(torch.cat([h, agg], dim=-1))
+        if not cfg.is_plus:
+            out = self.dropout(out, 2)
+        return h + out, x_out
+
+
+class MCnoAttEGNN(nn.Module):
+    """The ablation stacks: n_layers x (EGCL -> [trio encoder] ->
+    BipartiteEGCL -> LAS projection) + an output EGCL. `with_cross_attn`
+    runs one trio encoder (cross attention, or the InteractionModule pair
+    update without cfg.add_cross_attn_layer), shared by every layer, before
+    each inter layer; the pair it updates is carried through the stack.
+    `attn_bias_proj` is a parameter whose output no layer reads, as in the
+    reference. No remat, as in the JAX package."""
+
+    def __init__(self, cfg: ModelConfig, in_dim: int, hidden: int,
+                 out_dim: int, n_layers: int, with_cross_attn: bool = False):
+        super().__init__()
+        self.cfg = cfg
+        self.n_layers = n_layers
+        self.with_cross_attn = with_cross_attn
+        coord_max = cfg.normalize(10.0)
+        self.linear_in = nn.Linear(in_dim, hidden)
+        self.dropout = Dropout(cfg.dropout)
+        if with_cross_attn:
+            add_trio_encoder(self, cfg, hidden)
+        for i in range(n_layers):
+            self.add_module(f"gcl_{i}", EGCL(cfg, hidden, coord_max))
+            self.add_module(f"att_{i}", BipartiteEGCL(cfg, hidden, coord_max))
+        self.out_layer = EGCL(cfg, hidden, coord_max)
+        self.dropout_out = Dropout(cfg.dropout)
+        self.linear_out = nn.Linear(hidden, out_dim)
+
+    def forward(self, h: Tensor, x: Tensor, gi: GraphInputs,
+                pair_embed: Optional[Tensor], pair_mask: Optional[Tensor],
+                intra_cutoff: float, inter_cutoff: float, ctx_k: int,
+                p_p_dist_embed: Optional[Tensor] = None,
+                c_c_dist_embed: Optional[Tensor] = None):
+        cfg = self.cfg
+        layout = gi.layout
+        las_clamp = cfg.normalize(15.0)
+        movable = layout.movable(x.device)[None, :, None]
+
+        def maybe_fix(x_old, x_new):
+            if cfg.fix_pocket:
+                return torch.where(movable, x_new, x_old)
+            return x_new
+
+        h = self.dropout(self.linear_in(h))
+        ctx = G.build_ctx_graph(x, layout, gi.lig_mask, gi.pkt_mask,
+                                gi.bond_idx, gi.bond_mask, intra_cutoff, ctx_k)
+        adj = G.build_inter_graph(x, layout, gi.lig_mask, gi.pkt_mask,
+                                  inter_cutoff).adj
+        for i in range(self.n_layers):
+            h, x_new = self._modules[f"gcl_{i}"](h, x, ctx, gi)
+            x = maybe_fix(x, x_new)
+            if self.with_cross_attn:
+                # the shared encoder's i-th call of the round
+                h, pair_embed = trio_encoder(
+                    self, h, gi, pair_embed, pair_mask, p_p_dist_embed,
+                    c_c_dist_embed, call=i)
+            h, x_new = self._modules[f"att_{i}"](h, x, adj, gi)
+            x = maybe_fix(x, x_new)
+            if not cfg.rm_LAS_constrained_optim and not cfg.only_last_LAS:
+                x_l = las_projection_step(
+                    x[:, layout.lig_slice], gi.las_ref, gi.las_adj,
+                    cfg.geometry_reg_step_size, las_clamp,
+                    steps=cfg.geom_reg_steps)
+                x = layout.with_lig(x, x_l)
+
+        h, x_new = self.out_layer(h, x, ctx, gi)
         x = maybe_fix(x, x_new)
         h = self.linear_out(self.dropout_out(h))
         return h, x, pair_embed

@@ -68,10 +68,8 @@ class FABind(nn.Module):
 
     def __init__(self, cfg: ModelConfig, shapes: ShapeConfig):
         super().__init__()
-        if cfg.opm or cfg.rel_dis_pair_bias != "none":
-            raise NotImplementedError(
-                "the outer-product pair embedding and the distance-pair bias "
-                "are ported in later slices")
+        # cfg.rel_dis_pair_bias is read by no module, as in the JAX package
+        # (layers.Attention takes the bias; nothing passes one)
         self.cfg = cfg
         self.shapes = shapes
         C, Cp = cfg.hidden_size, cfg.pocket_pred_hidden_size

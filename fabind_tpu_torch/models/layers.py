@@ -12,6 +12,7 @@ import threading
 from typing import (Callable, Iterator, NamedTuple, Optional, Sequence,
                     Tuple, Union)
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -366,11 +367,14 @@ class MLPBlock(nn.Module):
             t=hf.sum(-1), q=(hf * hf).sum(-1))
 
     def ln_l1_edges(self, parts: LnL1Parts, a_dst: Tensor, t_dst: Tensor,
-                    q_dst: Tensor, h_src: Tensor, radial: Tensor) -> Tensor:
+                    q_dst: Tensor, h_src: Tensor, radial: Tensor,
+                    s_src: Optional[Tensor] = None) -> Tensor:
         """linear1(layernorm([h_dst ++ h_src ++ radial])) per edge from the
         destinations' parts (a_dst [..., H], t_dst and q_dst [...], each
         indexed or broadcast to the edges), the gathered source features
-        h_src [..., C] and the edges' radial [...]."""
+        h_src [..., C] and the edges' radial [...]. `s_src` is the sources'
+        projection h_src @ w_src.T when the caller has it per node (a dense
+        bipartite edge set broadcasts it); else it is computed per edge."""
         hf = h_src.float()
         D = 2 * h_src.shape[-1] + 1
         rf = radial.float()
@@ -378,7 +382,9 @@ class MLPBlock(nn.Module):
         var = (q_dst + (hf * hf).sum(-1) + rf * rf) / D - mu * mu
         inv = torch.rsqrt(var + 1e-5)
         dt = a_dst.dtype
-        pre = (a_dst + F.linear(h_src, parts.w_src)
+        if s_src is None:
+            s_src = F.linear(h_src, parts.w_src)
+        pre = (a_dst + s_src
                + rf[..., None].to(dt) * parts.w_r
                - mu[..., None].to(dt) * parts.u)
         return inv[..., None].to(dt) * pre + parts.c
@@ -439,7 +445,9 @@ class TransitionDiffOutDim(nn.Module):
 
 class Attention(nn.Module):
     """Gated multi-head attention with an additive bias list. c_hidden is
-    the per-head width."""
+    the per-head width. `distance` [*, Q, K, H] is FABind+'s distance-pair
+    bias: added to the logits before the softmax (`dis_pair_type` "add") or
+    multiplied into the weights after it ("mul")."""
 
     def __init__(self, q_dim: int, kv_dim: int, c_hidden: int, no_heads: int,
                  gating: bool = True):
@@ -456,7 +464,9 @@ class Attention(nn.Module):
         self.linear_o = nn.Linear(hd, q_dim)
 
     def forward(self, q_x: Tensor, kv_x: Tensor,
-                biases: Optional[Sequence[Tensor]] = None) -> Tensor:
+                biases: Optional[Sequence[Tensor]] = None,
+                distance: Optional[Tensor] = None,
+                dis_pair_type: str = "none") -> Tensor:
         H, D = self.no_heads, self.c_hidden
         q = self.linear_q(q_x).unflatten(-1, (H, D)) / math.sqrt(D)
         k = self.linear_k(kv_x).unflatten(-1, (H, D))
@@ -464,7 +474,11 @@ class Attention(nn.Module):
         a = torch.einsum("...qhd,...khd->...hqk", q, k)
         for b in biases or ():
             a = a + b
+        if dis_pair_type == "add" and distance is not None:
+            a = a + distance.movedim(-1, -3)
         a = torch.softmax(a, dim=-1)
+        if dis_pair_type == "mul" and distance is not None:
+            a = a * distance.movedim(-1, -3)
         o = torch.einsum("...hqk,...khd->...qhd", a, v)
         if self.gating:
             o = o * torch.sigmoid(self.linear_g(q_x)).unflatten(-1, (H, D))
@@ -472,18 +486,24 @@ class Attention(nn.Module):
 
 
 class InteractionModule(nn.Module):
-    """Pair embedding z_ij = Linear(p_i * c_j) from node embeddings."""
+    """Pair embedding from node embeddings: z_ij = Linear(p_i * c_j), or
+    with `opm` the outer product z_ij = Linear(p_i (x) c_j) over the
+    hidden_dim^2 products, p's channel major (the JAX package's
+    einsum "...bc,...de->...bdce" flattened)."""
 
     def __init__(self, p_dim: int, c_dim: int, hidden_dim: int,
-                 pair_dim: int, rm_layernorm: bool = False):
+                 pair_dim: int, rm_layernorm: bool = False,
+                 opm: bool = False):
         super().__init__()
         self.rm_layernorm = rm_layernorm
+        self.opm = opm
         if not rm_layernorm:
             self.layer_norm_p = nn.LayerNorm(p_dim, eps=1e-5)
             self.layer_norm_c = nn.LayerNorm(c_dim, eps=1e-5)
         self.linear_p = nn.Linear(p_dim, hidden_dim)
         self.linear_c = nn.Linear(c_dim, hidden_dim)
-        self.linear_out = nn.Linear(hidden_dim, pair_dim)
+        self.linear_out = nn.Linear(hidden_dim * hidden_dim if opm
+                                    else hidden_dim, pair_dim)
 
     def forward(self, p_embed: Tensor, c_embed: Tensor, p_mask: Tensor,
                 c_mask: Tensor):
@@ -493,5 +513,72 @@ class InteractionModule(nn.Module):
             c_embed = self.layer_norm_c(c_embed)
         p = self.linear_p(p_embed)
         c = self.linear_c(c_embed)
-        z = self.linear_out(torch.einsum("...ik,...jk->...ijk", p, c))
+        if self.opm:
+            z = self._outer_product_out(p, c)
+        else:
+            z = self.linear_out(torch.einsum("...ik,...jk->...ijk", p, c))
         return z * inter_mask[..., None].to(z.dtype), inter_mask
+
+    def _outer_product_out(self, p: Tensor, c: Tensor) -> Tensor:
+        """linear_out over the outer products without building them: the
+        [*, I, J, C*C] tensor is 66 GB in fp32 at the docking bucket
+        48:160:512, batch 8. linear_out's weight [O, C*C] is [O, C, C]
+        (p's channel, then c's); c is contracted first (T [*, J, O, C],
+        0.4 GB there), then p:
+            z[i, j, o] = sum_a p[i, a] sum_e W[o, a, e] c[j, e] + b[o]."""
+        C = p.shape[-1]
+        w = self.linear_out.weight.unflatten(1, (C, C))      # [O, C, C]
+        t = torch.einsum("...je,oae->...joa", c, w)
+        return torch.einsum("...ia,...joa->...ijo", p, t) + self.linear_out.bias
+
+
+class GaussianSmearing(nn.Module):
+    """RBF expansion of distances over `num_gaussians` fixed centers in
+    [start, stop]. The centers are computed, not kept in a buffer (the
+    reference's `offset` buffer is the same linspace)."""
+
+    def __init__(self, start: float = 0.0, stop: float = 5.0,
+                 num_gaussians: int = 50):
+        super().__init__()
+        self.offset = np.linspace(start, stop, num_gaussians)
+        self.coeff = -0.5 / float(self.offset[1] - self.offset[0]) ** 2
+
+    def forward(self, dist: Tensor) -> Tensor:
+        d = dist[..., None] - torch.as_tensor(self.offset, dtype=dist.dtype,
+                                              device=dist.device)
+        return torch.exp(self.coeff * d * d)
+
+
+class GaussianLayer(nn.Module):
+    """K gaussian pdfs with trainable means and stds, evaluated on a
+    [..., 1] distance broadcast to K channels."""
+
+    def __init__(self, K: int = 128):
+        super().__init__()
+        self.K = K
+        self.means = nn.Parameter(torch.empty(1, K).uniform_(0, 3))
+        self.stds = nn.Parameter(torch.empty(1, K).uniform_(0, 3))
+
+    def forward(self, x: Tensor) -> Tensor:
+        mean = self.means.reshape(-1)
+        std = self.stds.reshape(-1).abs() + 1e-2
+        z = (x.expand(*x.shape[:-1], self.K) - mean) / std
+        pi = 3.14159
+        return torch.exp(-0.5 * z * z) / (math.sqrt(2 * pi) * std)
+
+
+class RBFDistanceModule(nn.Module):
+    """RBF expansion + MLP distance embedding: Sequential(Linear, ReLU,
+    Dropout, Linear) named `mlp` as in the reference (children 0 and 3
+    carry the weights)."""
+
+    def __init__(self, rbf_stop: float, hidden_dim: int,
+                 num_gaussian: int = 32, dropout_rate: float = 0.1):
+        super().__init__()
+        self.rbf = GaussianSmearing(0.0, rbf_stop, num_gaussian)
+        self.mlp = nn.Sequential(nn.Linear(num_gaussian, hidden_dim),
+                                 nn.ReLU(), Dropout(dropout_rate),
+                                 nn.Linear(hidden_dim, hidden_dim))
+
+    def forward(self, distance: Tensor) -> Tensor:
+        return self.mlp(self.rbf(distance))

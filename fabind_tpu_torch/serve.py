@@ -79,6 +79,7 @@ from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.postopt import post_optimize_batch
 from fabind_tpu_torch.sample import sample_poses
+from fabind_tpu_torch.train.convert import drop_dead_keys
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
                                               cast_module_bf16,
                                               cast_tensor_bf16)
@@ -125,8 +126,10 @@ class DockingEngine:
         `"fabind_plus_sampling"` or `"fabflex"`); cfg.shapes is the
         largest accepted complex size.
       state_dict: port state dict (`train.convert.state_dict_from_flax` or
-        `load_torch_checkpoint`), loaded with strict=True. None draws seeded
-        random weights from `seed`.
+        `load_torch_checkpoint`), loaded with strict=True after the
+        reference's dead ablation keys the model lacks are dropped
+        (`train.convert.drop_dead_keys`). None draws seeded random weights
+        from `seed`.
       buckets: optional list of ShapeConfig; each request runs in the
         smallest one it fits. The largest must cover cfg.shapes. Defaults to
         [cfg.shapes].
@@ -169,7 +172,9 @@ class DockingEngine:
         if state_dict is None:
             init_params(model, torch.Generator().manual_seed(seed))
         else:
-            model.load_state_dict(state_dict, strict=True)
+            model.load_state_dict(drop_dead_keys(state_dict,
+                                                 model.state_dict()),
+                                  strict=True)
         model = model.eval()
         self.replicas = ReplicaSet(cast_module_bf16(model) if bf16 else model,
                                    devices)

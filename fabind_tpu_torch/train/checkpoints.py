@@ -27,6 +27,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from fabind_tpu_torch.train.convert import drop_dead_keys
 from fabind_tpu_torch.train.trainer import to_cpu
 
 
@@ -144,10 +145,13 @@ def load_weights(path: str) -> Dict[str, torch.Tensor]:
 def load_into(model: torch.nn.Module, state_dict: Dict[str, torch.Tensor]
               ) -> List[str]:
     """Load `state_dict` into `model`; parameters of the confidence head
-    (HEAD_PREFIXES) that the checkpoint lacks keep the model's values.
-    Returns those missing keys. A missing key outside the head, an unused
-    key or a shape mismatch raises: a wrong checkpoint must not load."""
+    (HEAD_PREFIXES) that the checkpoint lacks keep the model's values, and
+    the reference's keys of modules an ablation never runs are dropped
+    (convert.drop_dead_keys). Returns the missing keys. A missing key
+    outside the head, another unused key or a shape mismatch raises: a
+    wrong checkpoint must not load."""
     want = model.state_dict()
+    state_dict = drop_dead_keys(state_dict, want)
     missing = sorted(k for k in want if k not in state_dict)
     unused = sorted(k for k in state_dict if k not in want)
     bad = [k for k in missing if not k.startswith(HEAD_PREFIXES)]

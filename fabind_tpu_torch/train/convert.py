@@ -12,11 +12,16 @@ fabind_tpu/train/convert.py export_torch_state_dict):
                                       edge/node/coord/att/distmap MLPs
 - linear_kv_kernel/_bias           -> linear_kv weight/bias
 - RBF mlp_0/mlp_3                  -> mlp.0/mlp.3
+
+The ablation modules (triangle attention, the RBF distance layers, the
+no-attention stacks' EGCLs, the outer-product InteractionModule) follow the
+same rules. A reference checkpoint of an ablation also holds keys of modules
+its forward never runs (DEAD_REFERENCE_KEYS), which loading skips.
 """
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,13 +70,35 @@ def state_dict_from_flax(flax_params: Dict[str, Any],
     return sd
 
 
-def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+# keys the reference's ablation modules create but never run: the
+# interfacial layers' own InteractionModule when the cross attention layer is
+# on, the column triangle block (the row block serves both orientations) and
+# the RBF centers' buffer (GaussianSmearing computes them)
+DEAD_REFERENCE_KEYS = (".inter_layer.", ".triangle_block_column.",
+                       ".rbf.offset")
+
+
+def drop_dead_keys(sd: Dict[str, torch.Tensor], want: Iterable[str]
+                   ) -> Dict[str, torch.Tensor]:
+    """`sd` without the reference's dead keys (DEAD_REFERENCE_KEYS) that
+    the model's state dict keys `want` lack; every other key stays, so a
+    strict load still refuses a checkpoint that does not fit."""
+    want = set(want)
+    return {k: v for k, v in sd.items()
+            if k in want or not any(d in k for d in DEAD_REFERENCE_KEYS)}
+
+
+def load_torch_checkpoint(path: str, model: Optional[torch.nn.Module] = None
+                          ) -> Dict[str, torch.Tensor]:
     """A released FABind checkpoint (`best_model.bin` and the others) -> a
-    state dict with the DDP `module.` prefix stripped."""
+    state dict with the DDP `module.` prefix stripped; given the `model`
+    it is for, without the reference's dead keys that the model lacks
+    (drop_dead_keys)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if "state_dict" in sd:
         sd = sd["state_dict"]
-    return {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    sd = {re.sub(r"^module\.", "", k): v for k, v in sd.items()}
+    return sd if model is None else drop_dead_keys(sd, model.state_dict())
 
 
 # ------------------------------------------------------------------- ESM2

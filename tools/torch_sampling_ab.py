@@ -146,11 +146,11 @@ def recycle_forms(cs, card_line) -> int:
     from fabind_tpu_torch.sample import live_halves
     from fabind_tpu_torch.serve import DockingEngine
 
-    def where_rounds(self, x, count, h, gi, pair_embed, pair_mask, ctx_k):
+    def where_rounds(self, x, count, h, gi, pair, ctx_k):
         for i in range(self.n_iter - 1):
             with recycle_round(i):
-                x = torch.where(i < count - 1, self._step(
-                    h, x, gi, pair_embed, pair_mask, ctx_k)[1], x)
+                x = torch.where(i < count - 1,
+                                self._step(h, x, gi, pair, ctx_k)[1], x)
         return x
 
     shapes = cs.SMOKE_SHAPES
