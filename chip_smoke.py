@@ -5,7 +5,8 @@
 Phases, each of which raises on failure (non-zero exit):
   1. card and build: the card's name and power limit; every CUDA kernel of
      the port (edge_gate.cu, dropout.cu) is compiled from the sources in
-     this checkout (nvcc, sm_90a, one process per source, in parallel);
+     this checkout (nvcc, sm_90a, one process per source, in parallel),
+     then the host batch packer (collate.cc, the host C++ compiler);
   2. each kernel against its plain PyTorch version on the card: the edge
      gate's paired launch (both attention directions) at every shape the two
      served buckets launch it with, in fp32 and bf16, a ragged pair, H = 100
@@ -200,9 +201,24 @@ Phases, each of which raises on failure (non-zero exit):
      the plain gate (phase 3's bounds); one fp32 Trainer step per EGNN
      stack type at dropout 0.1 (keep_trig_attn, ablation_no_attention,
      ablation_no_attention_with_cross_attn): finite, not skipped, gate and
-     dropout launches as the modules predict (DropoutDraws). Printed: batch
-     ms per bucket, bf16 vs fp32 distance, peak memory, the phase's wall
-     time.
+     dropout launches as the modules predict (DropoutDraws); the
+     keep_trig_attn and ablation_no_attention artifacts, exported through
+     `cli.export --set` (bf16, small bucket, on the card) by processes of
+     their own started before phase 7, served by `from_exported` on the
+     small bucket's 8 requests: poses bit-equal to the live bf16 engine's,
+     the gate launched 33 and 0 times per batch. Printed: batch ms per
+     bucket, bf16 vs fp32 distance, peak memory, export and load seconds,
+     the phase's wall time;
+ 16. host collation: the native batch packer (csrc/collate.cc, built in
+     phase 1 with the host C++ compiler) against the python collator,
+     field by field (bond_idx as per-row sets under the mask, bond_mask by
+     row sums), on every batch of 8 of phase 3's 32 requests as the engine
+     routes them and of the requests as NPZ training samples (group train,
+     no isomorphisms); host ms per batch of 8 of both collators, per bucket
+     and source (median and range of 20 repeats); one batch per bucket
+     that collate_native built, served by a bf16 engine of phase 3's
+     seeded weights: poses bit-equal to the collate batch's, the gate
+     launched 33 times. Printed: the phase's wall time.
 The second-to-last line is a JSON object describing each kernel; the last is
 {"ok": true, "device": {...}}. With --profile PATH, a torch.profiler table of
 one bf16 docking batch of each bucket (device time by kernel) is written
@@ -246,7 +262,7 @@ from fabind_tpu_torch.cli import selftest as cli_selftest
 from fabind_tpu_torch.cli import train as cli_train
 from fabind_tpu_torch.cli import train_confidence as cli_train_confidence
 from fabind_tpu_torch.config import ShapeConfig, preset
-from fabind_tpu_torch.data.batching import build_sample
+from fabind_tpu_torch.data.batching import build_sample, collate
 from fabind_tpu_torch.data.buckets import (resolve_buckets, route_sample,
                                            sort_bucket_cfgs)
 from fabind_tpu_torch.data.dataset import (Loader, NPZSource,
@@ -254,6 +270,7 @@ from fabind_tpu_torch.data.dataset import (Loader, NPZSource,
 from fabind_tpu_torch.data.frame import load_frame, save_frame
 from fabind_tpu_torch.data.isomorphism import iso_labels_from_arrays
 from fabind_tpu_torch.data.kv import open_kv, write_kv
+from fabind_tpu_torch.data.native import build_library, collate_native
 from fabind_tpu_torch.data.featurize import (THREE_TO_ONE,
                                              extract_protein_structure,
                                              featurize_sdf, parse_sdf,
@@ -476,6 +493,14 @@ ABLATION_TRAIN = ("keep_trig_attn", "ablation_no_attention",
                   "ablation_no_attention_with_cross_attn")
 ABLATION_DROPOUT = 0.1
 ABLATION_ROOT = Path("build/chip_smoke_ablation")
+# the configurations exported on the card (bf16, small bucket) beside
+# phases 7-11, one of each EGNN stack that phase 15 serves, and where
+ABLATION_EXPORTS = ("keep_trig_attn", "ablation_no_attention")
+ABLATION_EXPORT_ROOT = Path("build/chip_smoke_ablation_export")
+# host collation (phase 16): repeats of each collator per batch, and where
+# the NPZ training samples are written
+COLLATE_REPEATS = 20
+COLLATE_ROOT = Path("build/chip_smoke_collate")
 # seeded N/C/O around each CA of the requests (the GVP configurations)
 BACKBONE_SEED = 15
 BACKBONE_JITTER_A = 0.2
@@ -2410,10 +2435,11 @@ def sdf_phase(raws, buckets, card_line, profile=None):
     return {torch.bfloat16: launches}
 
 
-def write_seeded_state_dict(preset_name: str, path: Path) -> str:
+def write_seeded_state_dict(preset_name: str, path: Path, **flags) -> str:
     """The seeded fp32 weights every engine of phases 3-5 draws (seed 0) as
-    a state-dict file, the checkpoint cli.export reads."""
-    model = make_model(preset(preset_name, **SMOKE_SHAPES))
+    a state-dict file, the checkpoint cli.export reads; `flags` configure
+    the preset as phase 15's configurations do."""
+    model = make_model(preset(preset_name, **SMOKE_SHAPES, **flags))
     init_params(model, torch.Generator().manual_seed(0))
     torch.save(model.state_dict(), path)
     return str(path)
@@ -3858,7 +3884,8 @@ def ablation_serving(name, cfg, reqs, buckets, card_line):
     no-attention stacks), each bucket's first batch again with the plain
     gate (bf16: mean per-atom distance within phase 3's bound; fp32: max
     coordinate difference within POSE_TOL_A), batch ms per bucket, peak
-    memory, bf16 vs fp32 distance. Returns {dtype: {bucket: launches}}."""
+    memory, bf16 vs fp32 distance. Returns ({dtype: {bucket: launches}},
+    the bf16 poses)."""
     per_batch = 0 if name in ABLATION_GATE_FREE else sum(
         s[-1] for s in served_pair_shapes(cfg))
     launches, poses = {}, {}
@@ -3912,7 +3939,55 @@ def ablation_serving(name, cfg, reqs, buckets, card_line):
           f"{sum(m > 4.0 for m in moved)} of {len(moved)} ligand centroids "
           f"more than 4 A apart (another pocket), largest "
           f"{max(moved):.3f} A (printed, not gated)")
-    return launches
+    return launches, poses[torch.bfloat16]
+
+
+def start_ablation_exports(buckets) -> dict:
+    """Phase 15's exports, started before phase 7 so that they run beside
+    phases 7-11: for each of ABLATION_EXPORTS, the seeded weights of
+    `fabind` with its flags through cli.export --set (bf16, the small
+    bucket, on the card), each in a process of its own. Returns {name:
+    process}."""
+    shutil.rmtree(ABLATION_EXPORT_ROOT, ignore_errors=True)
+    ABLATION_EXPORT_ROOT.mkdir(parents=True)
+    procs = {}
+    for name in ABLATION_EXPORTS:
+        flags = dict(ABLATION_CONFIGS)[name]
+        sd = write_seeded_state_dict("fabind",
+                                     ABLATION_EXPORT_ROOT / f"{name}.pt",
+                                     **flags)
+        procs[name] = start_process(
+            "fabind_tpu_torch.cli.export",
+            export_args("fabind", sd, ABLATION_EXPORT_ROOT / name, "cuda",
+                        buckets[0])
+            + [f"--set={k}={v}" for k, v in flags.items()],
+            ABLATION_EXPORT_ROOT / f"{name}.log", background=True)
+    return procs
+
+
+def ablation_exported(name, proc, reqs, live, card_line):
+    """The artifact `start_ablation_exports` wrote for configuration
+    `name`, served by DockingEngine.from_exported on the small bucket's
+    requests `reqs`: poses bit-equal to the live bf16 engine's `live`, the
+    gate launched 33 times per batch (0 for the no-attention stacks).
+    Returns {dtype: {bucket: launches}}."""
+    what = f"exported ablation {name} bf16"
+    finish_export(proc, ABLATION_EXPORT_ROOT / f"{name}.log",
+                  f"ablation {name} bf16 small bucket (cuda, own process)",
+                  card_line)
+    engine = load_exported(ABLATION_EXPORT_ROOT / name, what, card_line)
+    per_batch = 0 if name in ABLATION_GATE_FREE else sum(
+        s[-1] for s in served_pair_shapes(engine.cfg))
+    got, counter, _, _ = serve_main_path(engine, reqs, what,
+                                         per_batch=per_batch)
+    d = pose_dist(got, live)
+    print(f"{what} vs live, {len(reqs)} requests of bucket "
+          f"{list(counter.batches)}: max per-atom distance {d.max():.3e} A; "
+          f"gate launches {counter.launches} in batches {counter.batches}")
+    check(d.max() == 0.0, f"{what}: poses differ from live by {d.max()} A")
+    del engine
+    torch.cuda.empty_cache()
+    return {torch.bfloat16: counter.launches}
 
 
 class DropoutDraws:
@@ -3984,20 +4059,29 @@ def ablation_train_step(name, cfg, data, buckets, card_line):
     return ({torch.float32: {large: gate}}, {torch.float32: {large: drop}})
 
 
-def ablation_phase(raws, buckets, card_line):
+def ablation_phase(raws, small, buckets, procs, card_line):
     """Phase 15: the ablation and extra configurations (ABLATION_CONFIGS)
     served at released width in bf16 and fp32 over the 32 requests (the
-    GVP ones with a seeded backbone), and one fp32 training step per EGNN
-    stack type. Returns (gate launches by path, dropout launches by path),
-    each a list of (name prefix, {dtype: {bucket: launches}})."""
+    GVP ones with a seeded backbone), the artifacts of `procs`
+    (start_ablation_exports) served on the indices `small` of the small
+    bucket's requests, and one fp32 training step per EGNN stack type.
+    Returns (gate launches by path, dropout launches by path), each a list
+    of (name prefix, {dtype: {bucket: launches}})."""
     t_phase = time.perf_counter()
     full = backbone_requests(raws, BACKBONE_SEED)
     gate_paths, drop_paths = [], []
     for name, flags in ABLATION_CONFIGS:
         cfg = preset("fabind", **flags, **SMOKE_SHAPES)
         reqs = ablation_requests(cfg, raws, full)
-        gate_paths.append((f"ablation {name} ", ablation_serving(
-            name, cfg, reqs, buckets, card_line)))
+        launches, live = ablation_serving(name, cfg, reqs, buckets,
+                                          card_line)
+        gate_paths.append((f"ablation {name} ", launches))
+        if name in procs:
+            gate_paths.append((f"ablation exported {name} ",
+                               ablation_exported(
+                                   name, procs[name],
+                                   [reqs[i] for i in small],
+                                   [live[i] for i in small], card_line)))
     data = write_npz_dir(raws, ABLATION_ROOT / "data")
     for name in ABLATION_TRAIN:
         cfg = preset("fabind", dropout=ABLATION_DROPOUT,
@@ -4006,9 +4090,144 @@ def ablation_phase(raws, buckets, card_line):
         gate_paths.append((f"ablation train {name} ", gate))
         drop_paths.append((f"ablation train {name} ", drop))
     shutil.rmtree(ABLATION_ROOT, ignore_errors=True)
+    shutil.rmtree(ABLATION_EXPORT_ROOT, ignore_errors=True)
     print(f"time ablation phase wall: {time.perf_counter() - t_phase:.1f} s "
           f"[{card_line}]")
     return gate_paths, drop_paths
+
+
+def same_collation(got: dict, want: dict, what: str) -> None:
+    """collate_native's arrays against collate's, field by field: bond_idx
+    as per-row sets under the mask and bond_mask by row sums (the packer
+    may fill a row's slots in another order), every other field bit for
+    bit and of the same dtype."""
+    check(set(got) == set(want), f"{what}: fields {set(got) ^ set(want)}")
+    for k, w in want.items():
+        g = got[k]
+        if w is None:
+            same = g is None
+        elif k == "bond_idx":
+            mg, mw = got["bond_mask"], want["bond_mask"]
+            same = all(set(g[b, i][mg[b, i]]) == set(w[b, i][mw[b, i]])
+                       for b in range(w.shape[0]) for i in range(w.shape[1]))
+        elif k == "bond_mask":
+            same = np.array_equal(g.sum(-1), w.sum(-1))
+        else:
+            same = g.dtype == w.dtype and np.array_equal(g, w)
+        check(same, f"{what}: collate_native's {k} differs from collate's")
+
+
+def padded_batches(samples):
+    """(samples padded to BATCH with the last one, n_real) per batch of
+    BATCH, as the engine and the Loader pad a bucket's last batch."""
+    for i in range(0, len(samples), BATCH):
+        ss = samples[i:i + BATCH]
+        yield ss + [ss[-1]] * (BATCH - len(ss)), len(ss)
+
+
+def time_collators(samples, cfg_b, n_real, what, card_line) -> None:
+    """Host ms of collate and of collate_native on one batch of BATCH
+    samples, COLLATE_REPEATS of each in turns: median and range; and of
+    the np.zeros of the prot_feat buffer that both fill, the largest."""
+    feat = (BATCH, cfg_b.shapes.max_protein, cfg_b.model.protein_feat_dim)
+    ms = {collate: [], collate_native: [], "zeros": []}
+    for _ in range(COLLATE_REPEATS):
+        for fn, times in ms.items():
+            t0 = time.perf_counter()
+            if fn == "zeros":
+                np.zeros(feat, np.float32)
+            else:
+                fn(samples, cfg_b, n_valid=n_real)
+            times.append((time.perf_counter() - t0) * 1e3)
+    (p, pt), (n, nt), (z, _) = ((statistics.median(t), t)
+                                for t in ms.values())
+    print(f"time collate {what} (batch of {BATCH}, {COLLATE_REPEATS} "
+          f"repeats): python median {p:.3f} ms (range {min(pt):.3f}-"
+          f"{max(pt):.3f}), native median {n:.3f} ms (range "
+          f"{min(nt):.3f}-{max(nt):.3f}); python / native {p / n:.3f}x; "
+          f"np.zeros of the prot_feat buffer {list(feat)} alone median "
+          f"{z:.3f} ms [{card_line}]")
+
+
+def collate_phase(raws, buckets, card_line):
+    """Phase 16: host collation, on the host of the card. The packer's library
+    was built in phase 1. collate_native against collate, field by field,
+    on every batch of phase 3's 32 requests as the engine routes and pads
+    them, and of the requests as NPZ training samples (group train, no
+    isomorphisms, routed as the Loader routes them); host ms per batch of
+    both collators per bucket and source; one batch of each bucket that
+    collate_native built, served by phase 3's bf16 engine (the same seeded
+    weights): poses bit-equal to those of the batch collate built, the gate
+    launched 33 times. Returns those launches, {bf16: {bucket: n}}."""
+    t_phase = time.perf_counter()
+    cfg = preset("fabind", **SMOKE_SHAPES)
+    engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
+    per_batch = sum(s[-1] for s in served_pair_shapes(cfg))
+
+    # serving: the engine's own host batches, which collate built
+    serving, results, n_batches = {}, [None] * len(raws), 0
+    for chunk, cfg_b, arrays, n_real in engine._routed_batches(raws,
+                                                               results):
+        ss, _ = next(padded_batches([s for _, s in chunk]))
+        label = bucket_label(cfg_b.shapes)
+        same_collation(collate_native(ss, cfg_b, n_valid=n_real), arrays,
+                       f"serving batch {n_batches} bucket {label}")
+        serving.setdefault(label, (cfg_b, ss, n_real, arrays))
+        n_batches += 1
+    check(all(r is None for r in results), "serving: a request failed")
+
+    # training: the requests as NPZ samples of the train group
+    src = NPZSource(write_npz_dir(raws, COLLATE_ROOT / "data"))
+    rng = np.random.RandomState(REQUEST_SEED)
+    train = {}
+    for name in src.names:
+        raw = src.get(name)
+        cfg_b = route_sample(build_sample(raw, cfg, group="test"),
+                             engine.bucket_cfgs)
+        s = build_sample(raw, cfg, group="train", rng=rng,
+                         isomorphisms=raw.get("isomorphisms"))
+        check(s["isomorphisms"] is None, f"{name} carries isomorphisms")
+        train.setdefault(bucket_label(cfg_b.shapes), (cfg_b, []))[1].append(s)
+    for label, (cfg_b, samples) in train.items():
+        for i, (ss, n_real) in enumerate(padded_batches(samples)):
+            same_collation(collate_native(ss, cfg_b, n_valid=n_real),
+                           collate(ss, cfg_b, n_valid=n_real),
+                           f"train batch {i} bucket {label}")
+            n_batches += 1
+    shutil.rmtree(COLLATE_ROOT, ignore_errors=True)
+    print(f"collate_native equals collate on {n_batches} batches (serving "
+          f"and training, both buckets)")
+
+    for label, (cfg_b, ss, n_real, _) in serving.items():
+        time_collators(ss, cfg_b, n_real, f"serving bucket {label}",
+                       card_line)
+    for label, (cfg_b, samples) in train.items():
+        ss, n_real = next(padded_batches(samples))
+        time_collators(ss, cfg_b, n_real, f"train bucket {label}", card_line)
+
+    launches = {}
+    for label, (cfg_b, ss, n_real, arrays) in serving.items():
+        native_batch = engine._to_device(collate_native(ss, cfg_b,
+                                                        n_valid=n_real))
+        python_batch = engine._to_device(arrays)
+        edge_gate.KERNEL.launches = 0
+        got = engine.run_batch(native_batch, cfg_b)[0]
+        torch.cuda.synchronize()
+        launches[label] = edge_gate.KERNEL.launches
+        want = engine.run_batch(python_batch, cfg_b)[0]
+        same = torch.equal(got, want)
+        print(f"bf16 batch bucket {label} collated by collate_native: poses "
+              f"{'bit-equal' if same else 'NOT equal'} to the collate "
+              f"batch's, edge_gate launches {launches[label]} (expected "
+              f"{per_batch})")
+        check(same, f"bucket {label}: the native batch's poses differ")
+        check(launches[label] == per_batch,
+              f"bucket {label}: {launches[label]} gate launches")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"time phase 16 (host collation) wall: "
+          f"{time.perf_counter() - t_phase:.1f} s [{card_line}]")
+    return {torch.bfloat16: launches}
 
 
 def time_kernel_rows(served, max_err, paths, sms, clock_hz, card_line):
@@ -4083,6 +4302,10 @@ def main(argv=None) -> int:
     build_all([edge_gate.KERNEL, dropout.KERNEL])
     print(f"kernel build (edge_gate.cu, dropout.cu in parallel): "
           f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    lib = build_library()
+    print(f"host packer build (csrc/collate.cc, C++ compiler): "
+          f"{time.perf_counter() - t0:.2f} s -> {lib}")
     for kernel in (edge_gate.KERNEL, dropout.KERNEL):
         for line in kernel.build_log.splitlines():
             if any(k in line for k in ("entry function", "registers",
@@ -4194,10 +4417,11 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     best_of_phase(raws, buckets, card_line)
 
-    # ---- 12's and 13's exports start here, in processes of their own,
-    # beside 7-11
+    # ---- 12's, 13's and 15's exports start here, in processes of their
+    # own, beside 7-11
     sampling_proc = start_sampling_export(buckets)
     flex_proc = start_flex_export(buckets)
+    ablation_procs = start_ablation_exports(buckets)
     try:
         # ---- 7. training
         torch.cuda.empty_cache()
@@ -4229,17 +4453,25 @@ def main(argv=None) -> int:
         # ---- 13. flexible docking: live, the daemon, exported, selftest
         torch.cuda.empty_cache()
         flex_launches = flex_phase(raws, buckets, flex_proc, card_line)
+
+        # ---- 14. data parallelism: two ranks and two replicas on the card
+        torch.cuda.empty_cache()
+        dp_gate, dp_drop, dp_times = dp_phase(raws, by_bucket, buckets,
+                                              poses, poses32, card_line)
+
+        # ---- 15. the ablation and extra configurations, two exported
+        torch.cuda.empty_cache()
+        small = [i for i, r in enumerate(raws) if any(
+            r is q for q in by_bucket[bucket_label(buckets[0])])]
+        ablation_gate, ablation_drop = ablation_phase(
+            raws, small, buckets, ablation_procs, card_line)
     finally:
-        stop_processes([sampling_proc, flex_proc])
+        stop_processes([sampling_proc, flex_proc,
+                        *ablation_procs.values()])
 
-    # ---- 14. data parallelism: two ranks and two replicas on the card
+    # ---- 16. host collation: collate_native against collate
     torch.cuda.empty_cache()
-    dp_gate, dp_drop, dp_times = dp_phase(raws, by_bucket, buckets, poses,
-                                          poses32, card_line)
-
-    # ---- 15. the ablation and extra configurations
-    torch.cuda.empty_cache()
-    ablation_gate, ablation_drop = ablation_phase(raws, buckets, card_line)
+    native_launches = collate_phase(raws, buckets, card_line)
 
     # ---- 4b. kernel times
     rows = time_kernel_rows(
@@ -4252,7 +4484,8 @@ def main(argv=None) -> int:
          ("exported sampling ", gate_sampling)]
         + [(f"fabflex {path}", counts)
            for path, counts in flex_launches.items()] + dp_gate
-        + ablation_gate, sms, clock_hz, card_line)
+        + ablation_gate + [("collate_native ", native_launches)], sms,
+        clock_hz, card_line)
     rows += dropout_rows(time_dropout(sampling_buckets, card_line), drop_err,
                          [("exported sampling ", drop_exported),
                           ("sampling ", drop_live)] + ablation_drop)

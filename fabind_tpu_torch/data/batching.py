@@ -5,8 +5,11 @@ complex into unpadded arrays in the protein-mean frame (for the train group
 with the noisy pocket crop, torsion noise and a random rotation),
 `collate` pads and stacks samples into the FABindBatch field arrays. With
 use_esm2_feat=False or esm2_concat_raw the protein features are (or end
-with) the 15-d geometric ones of featurize.protein_gvp_features. The JAX
-package's C collator (fabind_tpu/data/native.py) is not ported.
+with) the 15-d geometric ones of featurize.protein_gvp_features.
+`data.native.collate_native` returns the same arrays with the packing done
+in C (csrc/collate.cc, the counterpart of the JAX package's
+fabind_tpu/data/native.py); the Loader, the engine and the CLIs call
+`collate`.
 """
 from __future__ import annotations
 

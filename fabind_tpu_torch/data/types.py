@@ -55,6 +55,18 @@ class FABindBatch:
     def batch_size(self) -> int:
         return self.lig_feat.shape[0]
 
+    @property
+    def n_lig(self) -> int:
+        return self.lig_feat.shape[1]
+
+    @property
+    def n_pocket(self) -> int:
+        return self.pocket_idx.shape[1]
+
+    @property
+    def n_protein(self) -> int:
+        return self.prot_feat.shape[1]
+
     @classmethod
     def from_numpy(cls, arrays: Dict[str, Optional[np.ndarray]],
                    device) -> "FABindBatch":

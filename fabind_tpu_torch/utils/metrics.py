@@ -1,9 +1,17 @@
 """Evaluation metrics, on the host.
 
-Own copy (numpy) of the parts of fabind_tpu/utils/metrics.py that
-`MetricAccumulator` uses: ligand RMSD mean/quantiles/<2 A/<5 A, the
-centroid-distance family, pocket classification accuracy, and pocket-center
-MAE/RMSE/DCC. Its inputs may be torch tensors on any device or numpy arrays.
+Own copy (numpy) of fabind_tpu/utils/metrics.py: ligand RMSD
+mean/quantiles/<2 A/<5 A, the centroid-distance family, pocket
+classification accuracy, pocket-center MAE/RMSE/DCC, the Kabsch and
+symmetry-corrected RMSDs, contact classification over distance maps and
+affinity metrics. Its inputs may be torch tensors on any device or numpy
+arrays.
+
+One deviation: the JAX package takes the contact AUROC from scikit-learn
+and leaves the key out when scikit-learn is missing. The port computes it
+itself (`roc_auc`, the Mann-Whitney rank statistic with tied scores given
+their average rank, which is what scikit-learn's trapezoidal ROC area
+equals) and always returns it when both classes are present.
 """
 from __future__ import annotations
 
@@ -13,10 +21,11 @@ import numpy as np
 
 
 def _np(x) -> np.ndarray:
-    """A tensor (any device, any float dtype) or array as a numpy array."""
+    """A tensor (any device, any float dtype; bf16 and fp16 become float32)
+    or array as a numpy array."""
     if hasattr(x, "detach"):
         x = x.detach().cpu()
-        if x.is_floating_point():
+        if x.is_floating_point() and x.element_size() < 4:
             x = x.float()
         return x.numpy()
     return np.asarray(x)
@@ -61,6 +70,13 @@ def pocket_cls_ok(logits: np.ndarray, labels: np.ndarray,
     return ((pred == (labels > 0.5)) | ~mask).all(axis=-1)
 
 
+def pocket_cls_accuracy(logits: np.ndarray, labels: np.ndarray,
+                        mask: np.ndarray) -> float:
+    """Fraction of complexes whose residue classification is fully correct
+    on valid residues."""
+    return float(pocket_cls_ok(_np(logits), _np(labels), _np(mask)).mean())
+
+
 def pocket_center_metrics(pred_center: np.ndarray, true_center: np.ndarray,
                           prefix: str = "pocket_center") -> Dict[str, float]:
     """MAE/MSE/RMSE + DCC = %(dist < 4Å) (utils/metrics.py:62-77)."""
@@ -72,6 +88,21 @@ def pocket_center_metrics(pred_center: np.ndarray, true_center: np.ndarray,
         f"{prefix}_rmse": float(np.sqrt((d ** 2).mean())),
         f"{prefix}_dcc_lt4": float((dist < 4.0).mean()),
     }
+
+
+def kabsch_rmsd(pred: np.ndarray, true: np.ndarray) -> float:
+    """Optimal-superposition RMSD for a single ligand [n, 3] (used by
+    pose-quality analyses; complements the direct RMSD used for docking
+    accuracy)."""
+    pred, true = _np(pred), _np(true)
+    p = pred - pred.mean(0)
+    q = true - true.mean(0)
+    h = p.T @ q
+    u, _, vt = np.linalg.svd(h)
+    d = np.sign(np.linalg.det(vt.T @ u.T))
+    r = vt.T @ np.diag([1, 1, d]) @ u.T
+    p = p @ r.T
+    return float(np.sqrt(((p - q) ** 2).sum(-1).mean()))
 
 
 def symmetric_rmsd(pred: np.ndarray, true: np.ndarray,
@@ -173,3 +204,71 @@ class MetricAccumulator:
         with open(path, "w") as f:
             for pdb, r in self.per_pdb:
                 f.write(f"{pdb} {r:.6f}\n")
+
+
+def roc_auc(labels: np.ndarray, scores: np.ndarray) -> float:
+    """Area under the ROC curve of `scores` for the binary `labels` (both
+    classes present): the Mann-Whitney U of the positives' ranks over
+    n_pos * n_neg, tied scores sharing their average rank (a tie between a
+    positive and a negative counts one half)."""
+    labels = np.asarray(labels, bool).ravel()
+    scores = np.asarray(scores, np.float64).ravel()
+    order = np.argsort(scores, kind="mergesort")
+    ranked = scores[order]
+    first = np.concatenate(([True], ranked[1:] != ranked[:-1]))
+    starts = np.flatnonzero(first)
+    ends = np.append(starts[1:], len(ranked))
+    ranks = np.empty(len(ranked))
+    ranks[order] = ((starts + 1 + ends) / 2.0)[np.cumsum(first) - 1]
+    n_pos = float(labels.sum())
+    n_neg = float(len(labels)) - n_pos
+    return float((ranks[labels].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+def contact_cls_metrics(y_pred: np.ndarray, y_true: np.ndarray,
+                        mask: Optional[np.ndarray] = None,
+                        threshold: float = 8.0,
+                        prefix: str = "contact") -> Dict[str, float]:
+    """Contact classification metrics over distance maps
+    (reference utils/metrics.py:7-55 `myMetric`/`cls_metric`: accuracy,
+    AUROC, precision, recall, F1 on contact = distance < 8 A). The AUROC
+    key is present when both classes are (`roc_auc`)."""
+    y_pred, y_true = _np(y_pred), _np(y_true)
+    if mask is not None:
+        mask = _np(mask)
+        y_pred = y_pred[mask]
+        y_true = y_true[mask]
+    pred_c = y_pred < threshold
+    true_c = y_true < threshold
+    tp = float((pred_c & true_c).sum())
+    fp = float((pred_c & ~true_c).sum())
+    fn = float((~pred_c & true_c).sum())
+    tn = float((~pred_c & ~true_c).sum())
+    eps = 1e-12
+    out = {
+        f"{prefix}_accuracy": (tp + tn) / max(tp + tn + fp + fn, 1.0),
+        f"{prefix}_precision": tp / (tp + fp + eps),
+        f"{prefix}_recall": tp / (tp + fn + eps),
+    }
+    out[f"{prefix}_f1"] = (2 * out[f"{prefix}_precision"]
+                           * out[f"{prefix}_recall"]
+                           / (out[f"{prefix}_precision"]
+                              + out[f"{prefix}_recall"] + eps))
+    if true_c.any() and (~true_c).any():
+        # smaller predicted distance = more likely contact
+        out[f"{prefix}_auroc"] = roc_auc(true_c, -y_pred)
+    return out
+
+
+def affinity_metrics(pred: np.ndarray, true: np.ndarray,
+                     prefix: str = "affinity") -> Dict[str, float]:
+    """Pearson + RMSE + MAE (reference utils/metrics.py:57-60)."""
+    pred = np.asarray(_np(pred), np.float64)
+    true = np.asarray(_np(true), np.float64)
+    pearson = float(np.corrcoef(pred, true)[0, 1]) if len(pred) > 1 else 0.0
+    return {
+        f"{prefix}_pearson": pearson,
+        f"{prefix}_rmse": float(np.sqrt(((pred - true) ** 2).mean())),
+        f"{prefix}_mae": float(np.abs(pred - true).mean()),
+    }

@@ -31,7 +31,7 @@ def test_port_and_chip_smoke_import_no_jax():
               "cli.inference", "cli.preprocess", "aot", "cli.export",
               "cli.selftest", "data.mdb", "data.kv", "data.frame",
               "data.isomorphism", "ops.dropout", "parallel.dp",
-              "parallel.steps"):
+              "parallel.steps", "data.native"):
         assert f"fabind_tpu_torch.{m}" in modules
     code = (
         "import importlib, json, sys\n"
