@@ -16,7 +16,8 @@ shape bucket (the bucket's shapes go to the forward). The JSON is
 `n_dropped_oversize`, with the JAX CLI's keys.
 `--ckpt` takes a released-format `.bin`/`.pt`, a `save_params` file or a
 `cli.train` run (or its checkpoint directory). `--profile-dir` writes a
-torch.profiler Chrome trace of the evaluation loop.
+torch.profiler Chrome trace of the evaluation loop, with the program's
+spans (utils/tracing.py).
 """
 from __future__ import annotations
 
@@ -83,7 +84,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "(default 3) from the directory's sizes")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of the "
-                        "evaluation loop here")
+                        "evaluation loop, with the program's spans, here")
     p.add_argument("--workers", type=int, default=8,
                    help="host featurization threads (0 = inline)")
     p.add_argument("--prefetch", type=int, default=2,

@@ -96,7 +96,8 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="checkpoint retention: the newest N steps")
     p.add_argument("--profile-dir", default=None,
                    help="write a torch.profiler trace (Chrome JSON) of this "
-                        "run's steps %d-%d here" % PROFILE_STEPS)
+                        "run's steps %d-%d, with the program's spans, here"
+                        % PROFILE_STEPS)
     p.add_argument("--workers", type=int, default=8,
                    help="host featurization threads; 0 = inline")
     p.add_argument("--prefetch", type=int, default=2,

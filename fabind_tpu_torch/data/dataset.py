@@ -15,6 +15,10 @@ Own copy of fabind_tpu/data/dataset.py for one process on one card:
   every bucket, and `host_shard=(rank, world)` for a data-parallel rank's
   share of each global batch. For one seed and source it yields the JAX
   Loader's batches bit for bit, per rank too.
+
+Traced (utils/tracing.py): spans loader.build (one sample, on its worker
+thread), loader.collate (one batch) and loader.wait (the consumer's wait on
+the prefetch queue).
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from fabind_tpu_torch.data.batching import build_sample, collate
 from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
 from fabind_tpu_torch.data.frame import load_frame
 from fabind_tpu_torch.data.kv import open_kv
+from fabind_tpu_torch.utils import tracing
 
 
 class NPZSource:
@@ -234,7 +239,8 @@ def prefetch(it: Iterator, depth: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with tracing.span("loader.wait"):
+                item = q.get()
             if item is _SENTINEL:
                 if err:
                     raise err[0]
@@ -324,19 +330,22 @@ class Loader:
         """(idx, raw, sample) stream; threaded when self.workers > 0."""
         if not self.workers:
             for idx in order:
-                raw = self.source.get(idx)
-                yield idx, raw, build_sample(
-                    raw, self.cfg, group=self.group, rng=rng,
-                    isomorphisms=raw.get("isomorphisms"))
+                with tracing.span("loader.build"):
+                    raw = self.source.get(idx)
+                    s = build_sample(raw, self.cfg, group=self.group,
+                                     rng=rng,
+                                     isomorphisms=raw.get("isomorphisms"))
+                yield idx, raw, s
             return
         seeds = rng.randint(0, 2 ** 31 - 1, size=len(order))
 
         def build(i_idx):
             i, idx = i_idx
-            raw = self.source.get(idx)
-            s = build_sample(raw, self.cfg, group=self.group,
-                             rng=np.random.RandomState(seeds[i]),
-                             isomorphisms=raw.get("isomorphisms"))
+            with tracing.span("loader.build"):
+                raw = self.source.get(idx)
+                s = build_sample(raw, self.cfg, group=self.group,
+                                 rng=np.random.RandomState(seeds[i]),
+                                 isomorphisms=raw.get("isomorphisms"))
             return idx, raw, s
 
         ex = ThreadPoolExecutor(self.workers, thread_name_prefix="fabind-data")
@@ -419,10 +428,11 @@ class Loader:
 
         def build(bi, j_idx):
             j, idx = j_idx
-            raw = self.source.get(idx)
-            s = build_sample(raw, self.cfg, group=self.group,
-                             rng=np.random.RandomState(seeds[bi][j]),
-                             isomorphisms=raw.get("isomorphisms"))
+            with tracing.span("loader.build"):
+                raw = self.source.get(idx)
+                s = build_sample(raw, self.cfg, group=self.group,
+                                 rng=np.random.RandomState(seeds[bi][j]),
+                                 isomorphisms=raw.get("isomorphisms"))
             return idx, raw, s
 
         ex = (ThreadPoolExecutor(self.workers, thread_name_prefix="fabind-data")
@@ -438,7 +448,8 @@ class Loader:
                 # order, so this rank's real rows are a prefix
                 n_valid = sum(1 for j, _ in mine if j < n_real)
                 buf = [s for _, _, s in built]
-                batch = collate(buf, cfg_b, n_valid=n_valid)
+                with tracing.span("loader.collate"):
+                    batch = collate(buf, cfg_b, n_valid=n_valid)
                 if not with_meta:
                     yield batch
                     continue
@@ -473,7 +484,8 @@ class Loader:
         deficit = 0
 
         def emit(buf, pdbs, cfg_b, n_real):
-            batch = collate(buf, cfg_b, n_valid=n_real)
+            with tracing.span("loader.collate"):
+                batch = collate(buf, cfg_b, n_valid=n_real)
             if not with_meta:
                 return batch
             return batch, {"pdb": pdbs[:n_real], "n_valid": n_real,

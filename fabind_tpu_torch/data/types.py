@@ -13,6 +13,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from fabind_tpu_torch.utils import tracing
+
 Tensor = torch.Tensor
 
 _INDEX_FIELDS = ("bond_idx", "pocket_idx", "isomorphisms")
@@ -68,11 +70,13 @@ class FABindBatch:
         return self.prot_feat.shape[1]
 
     @classmethod
+    @tracing.spanned("data.upload")
     def from_numpy(cls, arrays: Dict[str, Optional[np.ndarray]],
                    device) -> "FABindBatch":
         """Numpy arrays (as `data.batching.collate` returns them) -> a batch
         on `device`. Index tables become int64. A value that is already a
-        tensor is taken as it is (rows kept on the device)."""
+        tensor is taken as it is (rows kept on the device). Traced as the
+        span data.upload."""
         out = {}
         for f in dataclasses.fields(cls):
             a = arrays.get(f.name)

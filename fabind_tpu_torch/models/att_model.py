@@ -45,6 +45,7 @@ from fabind_tpu_torch.models.layers import (InteractionModule,
                                             active_stochastic,
                                             enter_stochastic, recycle_count,
                                             recycle_round)
+from fabind_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 
@@ -101,7 +102,7 @@ class EfficientMCAttModel(nn.Module):
 
     def __init__(self, cfg: ModelConfig, embed_size: int, hidden_size: int,
                  n_layers: int, n_iter: int, ctx_k: int,
-                 flexible: bool = False):
+                 flexible: bool = False, stage: str = "dock"):
         super().__init__()
         why = unbuildable(cfg)
         if why is not None:
@@ -110,6 +111,7 @@ class EfficientMCAttModel(nn.Module):
         self.n_iter = n_iter
         self.ctx_k = ctx_k
         self.flexible = flexible
+        self.stage = stage      # "pocket" or "dock": the rounds' trace id
         self.site = 0           # the recycle count's draw (assign_sites)
         # the released checkpoints use MCAttEGNN; the ablations replace its
         # interfacial attention with EGCLs over the inter edges
@@ -192,14 +194,18 @@ class EfficientMCAttModel(nn.Module):
         pair = (pair_embed, pair_mask, pp, cc)
 
         x = x.detach()
+        host_count = not isinstance(count, Tensor)
         with torch.no_grad():
-            if not isinstance(count, Tensor):
+            if host_count:
                 for i in range(count - 1):
-                    with recycle_round(i):
+                    with recycle_round(i), tracing.span(
+                            "model.round", stage=self.stage, round=i):
                         x = self._step(h, x, gi, pair, ctx_k)[1]
             elif self.n_iter > 1:
                 x = self._while_rounds(x, count, h, gi, pair, ctx_k)
-        with recycle_round(self.n_iter - 1):
+        last = {"round": count - 1} if host_count else {}
+        with recycle_round(self.n_iter - 1), tracing.span(
+                "model.round", stage=self.stage, **last):
             h_out, x, pair_out = self._step(h, x.detach(), gi, pair, ctx_k)
         return x, h_out, pair_out
 

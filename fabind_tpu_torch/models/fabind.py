@@ -32,6 +32,7 @@ from fabind_tpu_torch.ops import graph as G
 from fabind_tpu_torch.ops.geometry import las_projection_step, pairwise_dist
 from fabind_tpu_torch.ops.gumbel import (pocket_center_from_cls,
                                          pocket_center_rounded)
+from fabind_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 # (compound_out [B,Nc,C], protein_out [B,Nr,C], cls_logits [B,Nr],
@@ -81,7 +82,7 @@ class FABind(nn.Module):
         self.embedding_enlarge = nn.Linear(Cp, C)
         self.pocket_pred_model = EfficientMCAttModel(
             cfg, Cp, Cp, cfg.pocket_pred_layers, cfg.pocket_pred_n_iter,
-            shapes.ctx_k_whole)
+            shapes.ctx_k_whole, stage="pocket")
         # only docking is flexible: the pocket stage's protein stays rigid
         self.complex_model = EfficientMCAttModel(
             cfg, C, C, cfg.mean_layers, cfg.n_iter, shapes.ctx_k,
@@ -135,6 +136,7 @@ class FABind(nn.Module):
             las_ref=self.cfg.normalize(batch.lig_rdkit_coords))
 
     # ---------------------------------------------------------- pocket stage
+    @tracing.spanned("model.pocket")
     def _pocket_pred(self, batch: FABindBatch, shapes: ShapeConfig,
                      count=None) -> PocketOut:
         """Whole-protein pocket prediction: (compound_out [B,Nc,C],
@@ -257,10 +259,12 @@ class FABind(nn.Module):
             cfg.gs_hard, u=u)
 
         if train and not cfg.is_plus:
-            coin = stage_coin(state.seed)
-            use_stage2 = coin < cfg.stage_prob and float(state.rows.mean(
-                torch.linalg.norm((batch.coords_center - pred_center).detach(),
-                                  dim=-1))) < cfg.center_dist_threshold
+            use_stage2 = False
+            if stage_coin(state.seed) < cfg.stage_prob:
+                err = state.rows.mean(torch.linalg.norm(
+                    (batch.coords_center - pred_center).detach(), dim=-1))
+                with tracing.span("train.gate_sync"):
+                    use_stage2 = float(err) < cfg.center_dist_threshold
         else:
             use_stage2 = not train and stage == 2
 
@@ -294,6 +298,7 @@ class FABind(nn.Module):
             pocket_coords=pocket_coords)
 
     # --------------------------------------------------------------- docking
+    @tracing.spanned("model.dock")
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
               protein_out: Tensor, pkt_idx: Tensor, pkt_mask: Tensor,
               use_stage2: bool, ctx_k: int, count=None):
@@ -440,11 +445,13 @@ class FABind(nn.Module):
         compound_out, protein_out, cls_logits, radius_pred = pocket
         center = center_override
         if center is None:
-            center = pocket_center_rounded(cls_logits, batch.prot_xyz,
-                                           batch.prot_mask, cfg.gs_tau,
-                                           cfg.gs_hard)
-        idx, mask, _, overflow = self._predicted_crop(
-            center, batch, shapes, self._crop_radius(radius_pred))
+            with tracing.span("model.center"):
+                center = pocket_center_rounded(cls_logits, batch.prot_xyz,
+                                               batch.prot_mask, cfg.gs_tau,
+                                               cfg.gs_hard)
+        with tracing.span("model.crop"):
+            idx, mask, _, overflow = self._predicted_crop(
+                center, batch, shapes, self._crop_radius(radius_pred))
         out = self._dock(batch, compound_out, protein_out, idx, mask, True,
                          shapes.ctx_k, count)
         return out[0], out[7], idx, mask, out[5], overflow

@@ -29,6 +29,13 @@ come back in the world frame of the input structure.
   in threads of their own and come back in row order. Every dock_* method
   runs so, best-of-N included (its host step between the halves stays on
   the whole batch). Each replica keeps its own protein-row cache.
+- Tracing (utils/tracing.py): while it is on or a profiler records, a
+  dock_* call records spans serve.call, serve.featurize, serve.collate,
+  serve.upload, serve.run_batch, serve.postopt and serve.collect, a
+  batch's spans carrying its index in the call and its bucket; always, it
+  counts
+  requests, failures, batches and padding rows by bucket, real and padded
+  cells, and protein-row cache hits and misses (GET /health reports them).
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -59,6 +66,7 @@ deterministic.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import threading
 import time
 from collections import OrderedDict
@@ -80,6 +88,7 @@ from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.postopt import post_optimize_batch
 from fabind_tpu_torch.sample import sample_poses
 from fabind_tpu_torch.train.convert import drop_dead_keys
+from fabind_tpu_torch.utils import tracing
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
                                               cast_module_bf16,
                                               cast_tensor_bf16)
@@ -115,6 +124,29 @@ def _resolve_device(device) -> torch.device:
             "DockingEngine: CUDA is not available; pass device='cpu' to "
             "run on the CPU")
     return device
+
+
+def _count_batch(chunk, shapes, bucket: str, batch_size: int) -> None:
+    """Count one collated batch of `bucket`: the batch, its padding rows
+    (repeats of the last request), and its real cells (ligand atoms x
+    residues of each request) against its padded ones (rows x Nc x Nr)."""
+    tracing.count("serve.batches", key=bucket)
+    tracing.count("serve.padding_rows", batch_size - len(chunk), key=bucket)
+    tracing.count("serve.cells_real", sum(
+        s["lig_feat"].shape[0] * s["prot_xyz"].shape[0] for _, s in chunk))
+    tracing.count("serve.cells_padded",
+                  batch_size * shapes.max_ligand * shapes.max_protein)
+
+
+def _call_ids(engine: "DockingEngine", *_) -> Dict:
+    """The ids of a new dock_* call's span: its number in the engine."""
+    return {"call": next(engine._calls)}
+
+
+def _batch_ids(engine: "DockingEngine", *_) -> Dict:
+    """The ids of the calling thread's current batch (its index in the call
+    and its bucket, set by _routed_batches), for its upload and run."""
+    return getattr(engine._tls, "ids", {})
 
 
 class DockingEngine:
@@ -220,6 +252,8 @@ class DockingEngine:
                     else esm.to(self.device, torch.float32).eval())
         self._protein_cache: "OrderedDict[str, tuple]" = OrderedDict()
         self._protein_locks: Dict[str, threading.Lock] = {}
+        self._calls = itertools.count()      # serve.call's id
+        self._tls = threading.local()        # this thread's batch ids
 
     @classmethod
     def from_exported(cls, path: str, post_optim_steps: Optional[int] = None,
@@ -280,25 +314,40 @@ class DockingEngine:
         """Route requests to buckets and yield fixed-size host batches
         (chunk [(req_pos, sample)...], cfg_b, arrays, n_real). Requests that
         fail to featurize or fit no bucket are written to `results` as error
-        Poses."""
+        Poses. While a batch is out, this thread's batch ids (`_batch_ids`)
+        are its own."""
         by_bucket: Dict[int, Tuple[FABindConfig, List[Tuple[int, Dict]]]] = {}
-        for pos, raw in enumerate(raws):
-            try:
-                s = build_sample(raw, self.cfg, group="test")
-                cfg_b = self._route(s)
-            except Exception as e:   # skip-and-continue per request
-                results[pos] = Pose(coords=np.zeros((0, 3), np.float32),
-                                    confidence=0.0,
-                                    error=f"{type(e).__name__}: {e}")
-                continue
-            by_bucket.setdefault(id(cfg_b), (cfg_b, []))[1].append((pos, s))
-        for cfg_b, items in by_bucket.values():
-            for i in range(0, len(items), self.batch_size):
-                chunk = items[i:i + self.batch_size]
-                ss = [s for _, s in chunk]
-                ss += [ss[-1]] * (self.batch_size - len(ss))
-                yield chunk, cfg_b, collate(ss, cfg_b, n_valid=len(chunk)), \
-                    len(chunk)
+        tracing.count("serve.requests", len(raws))
+        with tracing.span("serve.featurize"):
+            for pos, raw in enumerate(raws):
+                try:
+                    s = build_sample(raw, self.cfg, group="test")
+                    cfg_b = self._route(s)
+                except Exception as e:   # skip-and-continue per request
+                    tracing.count("serve.requests_failed")
+                    results[pos] = Pose(coords=np.zeros((0, 3), np.float32),
+                                        confidence=0.0,
+                                        error=f"{type(e).__name__}: {e}")
+                    continue
+                by_bucket.setdefault(id(cfg_b), (cfg_b, []))[1].append(
+                    (pos, s))
+        bi = 0
+        try:
+            for cfg_b, items in by_bucket.values():
+                sh = cfg_b.shapes
+                bucket = f"{sh.max_ligand}x{sh.max_pocket}x{sh.max_protein}"
+                for i in range(0, len(items), self.batch_size):
+                    chunk = items[i:i + self.batch_size]
+                    ss = [s for _, s in chunk]
+                    ss += [ss[-1]] * (self.batch_size - len(ss))
+                    self._tls.ids = {"batch": bi, "bucket": bucket}
+                    with tracing.span("serve.collate", **self._tls.ids):
+                        arrays = collate(ss, cfg_b, n_valid=len(chunk))
+                    _count_batch(chunk, sh, bucket, self.batch_size)
+                    bi += 1
+                    yield chunk, cfg_b, arrays, len(chunk)
+        finally:
+            self._tls.__dict__.pop("ids", None)
 
     # ------------------------------------------------------------- batches
     def _to_device(self, arrays: Dict, prot: Optional[Dict] = None,
@@ -334,8 +383,10 @@ class DockingEngine:
             rows = []
             for b, key in enumerate(keys):
                 if key in cache:
+                    tracing.count("serve.prot_rows_hit")
                     cache.move_to_end(key)
                 else:
+                    tracing.count("serve.prot_rows_miss")
                     cache[key] = {
                         f: cast(to_device(torch.from_numpy(arrays[f][b]),
                                           self.devices[r]))
@@ -346,6 +397,7 @@ class DockingEngine:
         return {f: torch.stack([row[f] for row in rows])
                 for f in _PROT_FIELDS}
 
+    @tracing.spanned("serve.upload", _batch_ids)
     def _upload(self, arrays: Dict, chunk, n_real: int,
                 prot: Optional[List[Dict]] = None):
         """A host batch on the device: one FABindBatch, or with several
@@ -381,6 +433,7 @@ class DockingEngine:
         return batch if isinstance(batch, list) else self.replicas.split(
             batch)
 
+    @tracing.spanned("serve.run_batch", _batch_ids)
     def run_batch(self, batch, cfg_b: FABindConfig):
         """(coords [B,Nc,3], confidence [B], pocket_overflow [B]) for one
         batch of bucket cfg_b (a FABindBatch, or the replicas' blocks), on
@@ -407,6 +460,7 @@ class DockingEngine:
                     batch, shapes=cfg_b.shapes)
         return (self._post_optimize(out[0], batch), *out[1:])
 
+    @tracing.spanned("serve.run_batch", _batch_ids)
     def _best_of_batch(self, batch, cfg_b: FABindConfig,
                       sample_size: int, seed: int, batch_idx: int):
         """Best-of-N for one batch of bucket cfg_b: (the most confident of
@@ -445,11 +499,13 @@ class DockingEngine:
     def _post_optimize(self, coords, batch: FABindBatch):
         if not self.post_optim_steps:
             return coords
-        return post_optimize_batch(coords, batch.lig_rdkit_coords,
-                                   batch.las_adj, batch.lig_mask,
-                                   steps=self.post_optim_steps)[0]
+        with tracing.span("serve.postopt"):
+            return post_optimize_batch(coords, batch.lig_rdkit_coords,
+                                       batch.las_adj, batch.lig_mask,
+                                       steps=self.post_optim_steps)[0]
 
     @staticmethod
+    @tracing.spanned("serve.collect")
     def _collect(inflight, results: List[Optional[Pose]]) -> None:
         """Copy launched batches back in order and unpack per-request
         Poses (float32: numpy has no bf16), with the docked pocket's real
@@ -489,6 +545,7 @@ class DockingEngine:
             self.run_batch(self._to_device(arrays), c)[0].cpu()
         return time.perf_counter() - t0
 
+    @tracing.spanned("serve.call", _call_ids)
     def dock_raw(self, raws: Sequence[Dict[str, np.ndarray]]) -> List[Pose]:
         """Dock prebuilt raw-feature dicts (see data.batching.build_sample
         for the schema). Returns one Pose per request, in request order;
@@ -502,6 +559,7 @@ class DockingEngine:
         self._collect(inflight, results)
         return results   # type: ignore[return-value]
 
+    @tracing.spanned("serve.call", _call_ids)
     def dock_best_of(self, raws: Sequence[Dict[str, np.ndarray]],
                      sample_size: int = 40, seed: int = 0) -> List[Pose]:
         """FABind+ best-of-N sampling: `sample_size` stochastic docking
@@ -529,6 +587,7 @@ class DockingEngine:
         self._collect(inflight, results)
         return results   # type: ignore[return-value]
 
+    @tracing.spanned("serve.call", _call_ids)
     def dock_screen(self, protein_raw: Dict[str, np.ndarray],
                     ligand_raws: Sequence[Dict[str, np.ndarray]]
                     ) -> List[Pose]:
@@ -591,6 +650,7 @@ class DockingEngine:
                     self._protein_locks.pop(old, None)
             return struct, esm
 
+    @tracing.spanned("serve.call", _call_ids)
     def dock_sdf(self, requests: Sequence[Tuple[str, str]],
                  randomize_init: bool = False, seed: int = 0) -> List[Pose]:
         """Dock (ligand, pdb_path) pairs without RDKit. Each ligand is a

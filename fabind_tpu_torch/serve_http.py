@@ -5,7 +5,22 @@ are served until shutdown.
 
 Endpoints:
   GET  /health    -> {"status": "ok", "batch_size": N, "bf16": bool,
-                      "buckets": [[lig, pocket, protein], ...]}
+                      "buckets": [[lig, pocket, protein], ...],
+                      "counters": {"serve.requests": n,
+                                   "serve.requests_failed": n,
+                                   "serve.batches": {"LxPxR": n, ...},
+                                   "serve.padding_rows": {"LxPxR": n, ...},
+                                   "serve.cells_real": n,
+                                   "serve.cells_padded": n,
+                                   "serve.prot_rows_hit": n,
+                                   "serve.prot_rows_miss": n}}
+                     (the process's serving counters since it started,
+                     utils/tracing.py; failed: requests that failed to
+                     featurize or fit no bucket; padding rows: batch rows
+                     that repeat the last request; cells: ligand atoms x
+                     residues of the requests against rows x the bucket's
+                     atoms x residues, so 1 - real/padded is the share of
+                     the model's pair work spent on padding)
   POST /dock_raw  -> body: .npz bytes; the arrays of request i carry the
                      prefix "r{i}_" (r0_lig_coords, r0_lig_feats,
                      r0_bond_edges, r0_las_mask, r0_rdkit_coords,
@@ -58,9 +73,15 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from fabind_tpu_torch.data.featurize import sdf_string
+from fabind_tpu_torch.utils import tracing
 
 _PREFIX = re.compile(r"^r(\d+)_(.+)$")
 _PROTEIN_KEYS = ("protein_xyz", "esm_feat", "protein_full_coords")
+# what GET /health reports of the tracing registry, and its empty value
+_HEALTH_COUNTERS = {"serve.requests": 0, "serve.requests_failed": 0,
+                    "serve.batches": {}, "serve.padding_rows": {},
+                    "serve.cells_real": 0, "serve.cells_padded": 0,
+                    "serve.prot_rows_hit": 0, "serve.prot_rows_miss": 0}
 
 
 def _group_npz(data: bytes) -> List[Dict[str, np.ndarray]]:
@@ -153,12 +174,15 @@ class _Handler(BaseHTTPRequestHandler):
         if self.path != "/health":
             return self._error(404, "not found")
         engine = self.server.engine
+        counters = tracing.snapshot()["counters"]
         self._reply(200, json.dumps({
             "status": "ok", "batch_size": engine.batch_size,
             "bf16": engine.bf16,
             "buckets": [[c.shapes.max_ligand, c.shapes.max_pocket,
                          c.shapes.max_protein]
-                        for c in engine.bucket_cfgs]}).encode())
+                        for c in engine.bucket_cfgs],
+            "counters": {k: counters.get(k, v)
+                         for k, v in _HEALTH_COUNTERS.items()}}).encode())
 
     def do_POST(self):
         engine, inflight = self.server.engine, self.server.inflight

@@ -35,6 +35,9 @@ Counterpart of fabind_tpu/train/trainer.py (`create_train_state`,
   parameter the stage gate leaves unused counts as a zero gradient. The
   metrics are summed the same way, so the NaN skip reads the global loss
   and gradient norm on every rank. The initial weights are rank 0's.
+- traced (utils/tracing.py): spans train.step, train.forward, train.loss,
+  train.backward, train.readback and train.optimizer (the forward's
+  train.gate_sync and model.* spans inside train.forward).
 """
 from __future__ import annotations
 
@@ -52,6 +55,7 @@ from fabind_tpu_torch.models.layers import RowMap, dropout_rng
 from fabind_tpu_torch.parallel.dp import DPGroup
 from fabind_tpu_torch.train.losses import fabind_losses
 from fabind_tpu_torch.train.schedule import TrainOptimizer, global_norm
+from fabind_tpu_torch.utils import tracing
 from fabind_tpu_torch.utils.precision import cast_batch_bf16, cast_module_bf16
 
 Tensor = torch.Tensor
@@ -130,26 +134,31 @@ class Trainer:
                       gen: torch.Generator, gumbel_u: Optional[Tensor]):
         """The training forward and the losses on `batch`, and their
         backward: the float32 gradients in the master weights' .grad."""
-        model, b = self._compute(batch)
-        model.train()
-        model.zero_grad(set_to_none=True)
         group = self.group
-        rows = (RowMap() if group is None
-                else group.row_map(batch.batch_size))
-        with dropout_rng(gen, rows):
-            out = model(b, train=True, shapes=cfg_b.shapes, gumbel_u=gumbel_u)
-        out = output_float32(out)
-        loss, metrics = fabind_losses(
-            out, batch, self.cfg.model, self.cfg.train,
-            all_sum=None if group is None else group.all_sum)
-        loss.backward()
-        if self.model16 is not None:
-            for p16, p in zip(self.model16.parameters(),
-                              self.model.parameters()):
-                p.grad = None if p16.grad is None else p16.grad.float()
-            self.model16.zero_grad(set_to_none=True)
+        with tracing.span("train.forward"):
+            model, b = self._compute(batch)
+            model.train()
+            model.zero_grad(set_to_none=True)
+            rows = (RowMap() if group is None
+                    else group.row_map(batch.batch_size))
+            with dropout_rng(gen, rows):
+                out = model(b, train=True, shapes=cfg_b.shapes,
+                            gumbel_u=gumbel_u)
+            out = output_float32(out)
+        with tracing.span("train.loss"):
+            loss, metrics = fabind_losses(
+                out, batch, self.cfg.model, self.cfg.train,
+                all_sum=None if group is None else group.all_sum)
+        with tracing.span("train.backward"):
+            loss.backward()
+            if self.model16 is not None:
+                for p16, p in zip(self.model16.parameters(),
+                                  self.model.parameters()):
+                    p.grad = None if p16.grad is None else p16.grad.float()
+                self.model16.zero_grad(set_to_none=True)
         return metrics
 
+    @tracing.spanned("train.step", lambda self, *_: {"step": self.step})
     def train_step(self, batch: FABindBatch,
                    bucket_cfg: Optional[FABindConfig] = None,
                    gumbel_u: Optional[Tensor] = None) -> Dict[str, float]:
@@ -177,18 +186,21 @@ class Trainer:
             same = [names.index("use_stage2"), len(names)]
             summed[same] = vals[same]
             vals = summed
-        vals = vals.cpu().numpy().astype(np.float64)
+        with tracing.span("train.readback"):
+            vals = vals.cpu().numpy().astype(np.float64)
         ok = bool(np.isfinite(vals[names.index("loss")])
                   and np.isfinite(vals[-1]))
+        with tracing.span("train.optimizer"):
+            if ok:
+                self.optimizer.step()
+            self.model.zero_grad(set_to_none=True)
         if ok:
-            self.optimizer.step()
             out = dict(zip(names, vals[:-1].tolist()))
             out["grad_norm"] = float(vals[-1])
         else:
             out = {k: 0.0 for k in names}
             out["grad_norm"] = 0.0
         out["skipped_nan"] = 0.0 if ok else 1.0
-        self.model.zero_grad(set_to_none=True)
         self.step += 1
         return out
 

@@ -90,8 +90,13 @@ def test_http_health_dock_raw_and_screen(server):
     eng, base = server
     with urllib.request.urlopen(base + "/health", timeout=30) as r:
         health = json.loads(r.read())
+    counters = health.pop("counters")
     assert health == {"status": "ok", "batch_size": 2, "bf16": True,
                       "buckets": [[8, 16, 32], [16, 24, 48]]}
+    assert set(counters) == {"serve.requests", "serve.requests_failed",
+                             "serve.batches", "serve.padding_rows",
+                             "serve.cells_real", "serve.cells_padded",
+                             "serve.prot_rows_hit", "serve.prot_rows_miss"}
 
     raws = [make_raw(n=5, nr=20, seed=1), make_raw(n=12, nr=40, seed=2),
             make_raw(n=40, nr=40, seed=3)]
@@ -117,6 +122,38 @@ def test_http_health_dock_raw_and_screen(server):
     for p, w, c in zip(poses, want, _coords(poses)):
         assert p["error"] is None and w.error is None
         np.testing.assert_array_equal(c, w.coords)
+
+
+def test_http_health_counts_requests(server):
+    """GET /health's counters move by what a /dock_raw call did: its
+    requests, the one that fits no bucket, a batch with one padding row in
+    each bucket, the requests' cells against the batches', and per batch a
+    protein-row miss and a hit (the padding row repeats it)."""
+    _, base = server
+
+    def counters():
+        with urllib.request.urlopen(base + "/health", timeout=30) as r:
+            return json.loads(r.read())["counters"]
+
+    before = counters()
+    raws = [make_raw(n=5, nr=20, seed=21), make_raw(n=12, nr=40, seed=22),
+            make_raw(n=40, nr=40, seed=23)]
+    entries = {f"r{i}_{k}": v for i, raw in enumerate(raws)
+               for k, v in raw.items()}
+    status, poses = _post(base + "/dock_raw", _npz(entries))
+    assert status == 200 and [p["error"] is None for p in poses] == [
+        True, True, False]
+    after = counters()
+    moved = {k: after[k] - before[k] for k in after
+             if not isinstance(after[k], dict)}
+    assert moved == {"serve.requests": 3, "serve.requests_failed": 1,
+                     "serve.cells_real": 5 * 20 + 12 * 40,
+                     "serve.cells_padded": 2 * 8 * 32 + 2 * 16 * 48,
+                     "serve.prot_rows_hit": 2, "serve.prot_rows_miss": 2}
+    for key in ("serve.batches", "serve.padding_rows"):
+        for bucket in ("8x16x32", "16x24x48"):
+            assert (after[key].get(bucket, 0)
+                    - before[key].get(bucket, 0)) == 1
 
 
 def test_http_refusals(server):
