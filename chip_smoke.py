@@ -22,7 +22,10 @@ Phases, each of which raises on failure (non-zero exit):
      `fabind` full width, bf16, over two shape buckets, on 32 seeded
      synthetic requests (seeded random weights): one finite pose per request,
      at least 8 requests in each bucket, the gate launched 33 times per batch
-     in each bucket; each bucket's first batch docked again with the plain
+     in each bucket, every batch after warm-up a replay of its bucket's
+     docking graphs (fabind_tpu_torch/graphs.py) and the same requests
+     docked eagerly equal to the graphed poses bit for bit (bf16 and fp32);
+     each bucket's first batch docked again (eagerly) with the plain
      gate; the same requests through an fp32 engine (bf16 vs fp32 per-atom
      difference; fp32 kernel vs plain gate); dock_screen against dock_raw,
      a second dock_raw with the protein cache warm, post-optimization, and an
@@ -301,6 +304,7 @@ from fabind_tpu_torch.train.confidence import METRIC_KEYS
 from fabind_tpu_torch.train.schedule import build_schedule
 from fabind_tpu_torch.train.trainer import (Trainer, eval_forward,
                                             step_generator)
+from fabind_tpu_torch.utils import tracing
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, fp32 FLOP/s
 # outside the tensor cores
@@ -870,14 +874,61 @@ def first_batches(engine, by_bucket):
     return out
 
 
+@contextlib.contextmanager
+def eager_docking(engine):
+    """The engine docks eagerly in the block, its docking graphs
+    (fabind_tpu_torch/graphs.py) set aside: a gate patched in the block
+    then runs, where a replay would launch the captured operator."""
+    held, engine._graphs = engine._graphs, None
+    try:
+        yield
+    finally:
+        engine._graphs = held
+
+
 def run_plain_gate(engine, batch, cfg_b):
-    """One batch with the gate's plain version in place of the kernel."""
+    """One batch with the gate's plain version in place of the kernel
+    (docked eagerly)."""
     orig = layers.phi_rank1_pair
     layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
     try:
-        return engine.run_batch(batch, cfg_b)
+        with eager_docking(engine):
+            return engine.run_batch(batch, cfg_b)
     finally:
         layers.phi_rank1_pair = orig
+
+
+def graph_counts():
+    """The serving counters of the docking graphs, by bucket."""
+    c = tracing.snapshot()["counters"]
+    return {k: dict(c.get(k, {})) for k in (
+        "serve.graph_captures", "serve.graph_replays", "serve.graph_eager")}
+
+
+def check_graphed(engine, raws, poses, counter, before, what):
+    """After warm-up every batch of a dock_raw (`counter`, the
+    BucketLaunches of the call that gave `poses`; `before`, graph_counts()
+    just before it) replayed its bucket's graphs, and the same requests
+    docked eagerly give the same poses bit for bit."""
+    after = graph_counts()
+    moved = {k: {b: n - before[k].get(b, 0) for b, n in after[k].items()
+                 if n != before[k].get(b, 0)} for k in after}
+    # the engine's counters key a bucket "LxPxR", bucket_label "L:P:R"
+    batches = {k.replace(":", "x"): n for k, n in counter.batches.items()}
+    print(f"{what} dock_raw after warm-up: graph replays by bucket "
+          f"{moved['serve.graph_replays']}, batches {batches}, "
+          f"captures {moved['serve.graph_captures']}, eager "
+          f"{moved['serve.graph_eager']}")
+    check(moved["serve.graph_replays"] == batches
+          and not moved["serve.graph_captures"]
+          and not moved["serve.graph_eager"],
+          f"{what}: replays {moved} for batches {batches}")
+    with eager_docking(engine):
+        eager = engine.dock_raw(raws)
+    d = pose_dist(eager, poses)
+    print(f"{what} dock_raw graphed vs eager docking, {len(d)} atoms: max "
+          f"per-atom distance {d.max():.3e} A")
+    check(d.max() == 0.0, f"{what}: graphed vs eager poses differ")
 
 
 def serve_main_path(engine, raws, what, per_batch=None):
@@ -2417,7 +2468,8 @@ def sdf_phase(raws, buckets, card_line, profile=None):
     orig = layers.phi_rank1_pair
     layers.phi_rank1_pair = edge_gate.phi_rank1_pair_reference
     try:
-        plain = engine.dock_sdf(pairs)
+        with eager_docking(engine):
+            plain = engine.dock_sdf(pairs)
     finally:
         layers.phi_rank1_pair = orig
     d = pose_dist(poses, plain)
@@ -4335,8 +4387,10 @@ def main(argv=None) -> int:
     for label, rs in by_bucket.items():
         check(len(rs) >= MIN_PER_BUCKET,
               f"bucket {label} serves {len(rs)} < {MIN_PER_BUCKET} requests")
+    before = graph_counts()
     poses, counter, launches, _ = serve_main_path(engine, raws, "bf16")
     main_launches = {torch.bfloat16: counter.launches}
+    check_graphed(engine, raws, poses, counter, before, "bf16")
     print("pocket_truncated per request:", [p.pocket_truncated for p in poses])
 
     batches = first_batches(engine, by_bucket)
@@ -4387,8 +4441,10 @@ def main(argv=None) -> int:
     warm["fp32"] = engine32.warmup()
     print(f"time fp32 warmup ({len(buckets)} buckets): {warm['fp32']:.3f} s "
           f"[{card_line}]")
+    before = graph_counts()
     poses32, counter, _, _ = serve_main_path(engine32, raws, "fp32")
     main_launches[torch.float32] = counter.launches
+    check_graphed(engine32, raws, poses32, counter, before, "fp32")
     d = pose_dist(poses, poses32)
     print(f"bf16 vs fp32 engine, {len(d)} atoms: per-atom distance mean "
           f"{d.mean():.3f} A, max {d.max():.3f} A (mean limit "

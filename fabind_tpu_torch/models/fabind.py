@@ -396,7 +396,7 @@ class FABind(nn.Module):
                        center_override: Optional[Tensor] = None,
                        shapes: Optional[ShapeConfig] = None,
                        pocket: Optional[PocketOut] = None,
-                       pocket_count=None, count=None):
+                       pocket_count=None, count=None, dock=None):
         """Predicted-pocket inference in the shape bucket `shapes` (default
         self.shapes: one module, with one copy of the weights, serves every
         bucket): the pocket stage, or `pocket`, the outputs of one run
@@ -405,11 +405,13 @@ class FABind(nn.Module):
         (no-random gumbel fallback) unless `center_override` is given; the
         predicted crop; docking. `pocket_count` and `count` are the
         recycle counts of the pocket stage and of docking (default: drawn,
-        EfficientMCAttModel.draw_count). Returns (coords [B,Nc,3],
-        confidence [B] (zeros without a confidence head), pocket_overflow
-        [B])."""
+        EfficientMCAttModel.draw_count). `dock`, with `_dock`'s arguments
+        and outputs, stands in for it (the serving engine's graph replay,
+        graphs.py). Returns (coords [B,Nc,3], confidence [B] (zeros
+        without a confidence head), pocket_overflow [B])."""
         coords, _, _, _, confidence, overflow = self.inference_flexible_diag(
-            batch, center_override, shapes, pocket, pocket_count, count)
+            batch, center_override, shapes, pocket, pocket_count, count,
+            dock)
         return coords, confidence, overflow
 
     def inference(self, batch: FABindBatch,
@@ -434,7 +436,7 @@ class FABind(nn.Module):
                                 center_override: Optional[Tensor] = None,
                                 shapes: Optional[ShapeConfig] = None,
                                 pocket: Optional[PocketOut] = None,
-                                pocket_count=None, count=None):
+                                pocket_count=None, count=None, dock=None):
         """`inference_flexible` + pocket_overflow [B], with inference_diag's
         arguments: (lig_coords, pocket_coords, pkt_idx, pkt_mask,
         confidence, pocket_overflow)."""
@@ -452,8 +454,8 @@ class FABind(nn.Module):
         with tracing.span("model.crop"):
             idx, mask, _, overflow = self._predicted_crop(
                 center, batch, shapes, self._crop_radius(radius_pred))
-        out = self._dock(batch, compound_out, protein_out, idx, mask, True,
-                         shapes.ctx_k, count)
+        out = (dock or self._dock)(batch, compound_out, protein_out, idx,
+                                   mask, True, shapes.ctx_k, count)
         return out[0], out[7], idx, mask, out[5], overflow
 
 

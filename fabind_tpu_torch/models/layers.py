@@ -535,17 +535,29 @@ class InteractionModule(nn.Module):
 class GaussianSmearing(nn.Module):
     """RBF expansion of distances over `num_gaussians` fixed centers in
     [start, stop]. The centers are computed, not kept in a buffer (the
-    reference's `offset` buffer is the same linspace)."""
+    reference's `offset` buffer is the same linspace), uploaded once per
+    device and dtype, so a forward copies nothing from the host and a CUDA
+    graph can hold it (graphs.py); a traced program computes them."""
 
     def __init__(self, start: float = 0.0, stop: float = 5.0,
                  num_gaussians: int = 50):
         super().__init__()
         self.offset = np.linspace(start, stop, num_gaussians)
         self.coeff = -0.5 / float(self.offset[1] - self.offset[0]) ** 2
+        self._centers = {}
+
+    def centers(self, device, dtype) -> Tensor:
+        if torch.compiler.is_compiling():
+            return torch.as_tensor(self.offset, dtype=dtype, device=device)
+        t = self._centers.get((device, dtype))
+        if t is None:
+            with torch.inference_mode(False):   # a tensor autograd may read
+                t = self._centers[(device, dtype)] = torch.as_tensor(
+                    self.offset, dtype=dtype, device=device)
+        return t
 
     def forward(self, dist: Tensor) -> Tensor:
-        d = dist[..., None] - torch.as_tensor(self.offset, dtype=dist.dtype,
-                                              device=dist.device)
+        d = dist[..., None] - self.centers(dist.device, dist.dtype)
         return torch.exp(self.coeff * d * d)
 
 

@@ -11,6 +11,13 @@ come back in the world frame of the input structure.
   (utils/precision.py), as the JAX engine serves.
 - All batches of a call are launched before any result is copied back, so
   the host featurizes and uploads batch i+1 while the device runs batch i.
+- A live engine with one replica on a CUDA device replays each bucket's
+  docking stage as CUDA graphs (graphs.py): the pocket stage, its center
+  and the crop run eagerly, then the bucket's graphs, split at each matrix
+  product and edge-gate launch, which stay eager calls of their operators.
+  A bucket's first batch captures its graphs and replays them, so
+  `warmup()` captures every bucket. Best-of-N, exported programs, several
+  replicas and the CPU dock eagerly.
 - Protein rows seen before stay on the device (an LRU keyed by content), so
   a repeated protein skips its upload; `dock_screen` uploads its one protein
   once per bucket.
@@ -32,10 +39,12 @@ come back in the world frame of the input structure.
 - Tracing (utils/tracing.py): while it is on or a profiler records, a
   dock_* call records spans serve.call, serve.featurize, serve.collate,
   serve.upload, serve.run_batch, serve.postopt and serve.collect, a
-  batch's spans carrying its index in the call and its bucket; always, it
-  counts
+  batch's spans carrying its index in the call and its bucket, and a
+  graph replay a model.dock span with id graph="replay"; always, it counts
   requests, failures, batches and padding rows by bucket, real and padded
-  cells, and protein-row cache hits and misses (GET /health reports them).
+  cells, protein-row cache hits and misses, and by bucket the graph
+  captures, the replays and the batches docked eagerly (GET /health
+  reports them).
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -54,11 +63,18 @@ Example:
 
 Thread safety: every dock_* method may be called from several threads at
 once. The protein-row cache is read and filled under an RLock; the model runs
-outside it (its forward keeps no state), and an exported program runs under
-the artifact's own lock one call at a time (aot.ExportedInference), so
-concurrent calls interleave at program-call granularity (a best-of-N pass
-releases it between its halves) and give the poses of serial calls. A protein's ESM2 forward runs under a lock of its own path,
-not the engine's, so it does not stall requests for other proteins.
+outside it. Its eager forward keeps no state; a bucket's graphs read and
+write fixed tensors, so their replays are serialized by the bucket's lock,
+held from the copies into the graphs' inputs through the copies of their
+outputs out, and a bucket's capture holds it too (other buckets go on
+meanwhile); a replay's stream waits for the previous replay's copies out,
+so callers on CUDA streams of their own are ordered on the device too. An
+exported program runs under the artifact's own lock one call at a time
+(aot.ExportedInference), so concurrent calls interleave at program-call
+granularity (a best-of-N pass releases it between its halves). Either way
+concurrent calls give the poses of serial calls. A protein's
+ESM2 forward runs under a lock of its own path, not the engine's, so it
+does not stall requests for other proteins.
 `dock_best_of` turns dropout on for its own thread only
 (layers.dropout_seed), so a concurrent dock_raw on the same engine stays
 deterministic.
@@ -76,6 +92,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fabind_tpu_torch import graphs
 from fabind_tpu_torch.config import FABindConfig
 from fabind_tpu_torch.data import featurize as F
 from fabind_tpu_torch.data.batching import (SampleTooLarge, build_sample,
@@ -84,6 +101,7 @@ from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
 from fabind_tpu_torch.data.torsion import randomize_torsions
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays, to_device
 from fabind_tpu_torch.models.fabind import init_params, make_model
+from fabind_tpu_torch.models.layers import active_stochastic
 from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.postopt import post_optimize_batch
 from fabind_tpu_torch.sample import sample_poses
@@ -124,6 +142,12 @@ def _resolve_device(device) -> torch.device:
             "DockingEngine: CUDA is not available; pass device='cpu' to "
             "run on the CPU")
     return device
+
+
+def _bucket_label(shapes) -> str:
+    """A bucket's key in spans and counters: "LxPxR" (ligand, pocket and
+    protein sizes)."""
+    return f"{shapes.max_ligand}x{shapes.max_pocket}x{shapes.max_protein}"
 
 
 def _count_batch(chunk, shapes, bucket: str, batch_size: int) -> None:
@@ -212,6 +236,10 @@ class DockingEngine:
                                    devices)
         self.model = self.replicas.modules[0]
         self._exported = None
+        backend = graphs.backend_for(devices[0]) if len(devices) == 1 \
+            else None
+        if backend is not None:
+            self._graphs = graphs.DockGraphs(self.model, backend, devices[0])
 
     def _setup(self, cfg: FABindConfig, bucket_cfgs, batch_size: int,
                bf16: bool, post_optim_steps: int, devices,
@@ -254,6 +282,9 @@ class DockingEngine:
         self._protein_locks: Dict[str, threading.Lock] = {}
         self._calls = itertools.count()      # serve.call's id
         self._tls = threading.local()        # this thread's batch ids
+        # the docking stage's graphs (graphs.py), set by a live engine that
+        # can replay them; None docks eagerly
+        self._graphs: Optional[graphs.DockGraphs] = None
 
     @classmethod
     def from_exported(cls, path: str, post_optim_steps: Optional[int] = None,
@@ -335,7 +366,7 @@ class DockingEngine:
         try:
             for cfg_b, items in by_bucket.values():
                 sh = cfg_b.shapes
-                bucket = f"{sh.max_ligand}x{sh.max_pocket}x{sh.max_protein}"
+                bucket = _bucket_label(sh)
                 for i in range(0, len(items), self.batch_size):
                     chunk = items[i:i + self.batch_size]
                     ss = [s for _, s in chunk]
@@ -441,23 +472,40 @@ class DockingEngine:
         post_optim_steps > 0. A flexible config also returns the docked
         pocket, in an exported program's order: (coords, confidence,
         pocket_coords [B,Np,3], pkt_idx [B,Np], pkt_mask [B,Np],
-        pocket_overflow). Each replica runs its block in its own thread."""
+        pocket_overflow). Each replica runs its block in its own thread.
+        The docking stage replays the bucket's graphs where the engine can
+        (`_graph_dock`)."""
+        dock = self._graph_dock(batch, cfg_b)
         return self.replicas.gather(self.replicas.map(
-            lambda r, b: self._run_block(r, b, cfg_b), self._blocks(batch)))
+            lambda r, b: self._run_block(r, b, cfg_b, dock),
+            self._blocks(batch)))
 
-    def _run_block(self, r: int, batch: FABindBatch, cfg_b: FABindConfig):
-        """run_batch of replica r's block."""
+    def _graph_dock(self, batch, cfg_b: FABindConfig):
+        """The docking stage of cfg_b's bucket as graphs (graphs.py) where
+        they can serve the batch: a live engine with one replica on the
+        card, outside a stochastic forward of this thread. None docks
+        eagerly, and counts the batch under serve.graph_eager."""
+        label = _bucket_label(cfg_b.shapes)
+        if self._graphs is None or active_stochastic() is not None:
+            tracing.count("serve.graph_eager", key=label)
+            return None
+        return self._graphs.docking(cfg_b.shapes, batch.batch_size, label)
+
+    def _run_block(self, r: int, batch: FABindBatch, cfg_b: FABindConfig,
+                   dock=None):
+        """run_batch of replica r's block; `dock` stands in for the
+        model's docking stage (the bucket's graphs)."""
         with torch.inference_mode():
             if self._exported is not None:
                 out = self._exported.fn(cfg_b)(batch)
             elif cfg_b.model.flexible_docking:
                 coords, pkt, idx, mask, conf, overflow = \
                     self.replicas.modules[r].inference_flexible_diag(
-                        batch, shapes=cfg_b.shapes)
+                        batch, shapes=cfg_b.shapes, dock=dock)
                 out = (coords, conf, pkt, idx, mask, overflow)
             else:
                 out = self.replicas.modules[r].inference_diag(
-                    batch, shapes=cfg_b.shapes)
+                    batch, shapes=cfg_b.shapes, dock=dock)
         return (self._post_optimize(out[0], batch), *out[1:])
 
     @tracing.spanned("serve.run_batch", _batch_ids)
@@ -470,7 +518,10 @@ class DockingEngine:
         post_optim_steps > 0, in float32 as the JAX package does: in bf16 a
         coordinate near 32 A moves in steps of 0.25 A, and most lr-0.1 Adam
         updates round away. With several replicas the passes run per
-        replica (sample.sample_poses)."""
+        replica (sample.sample_poses). Docking runs eagerly (counted under
+        serve.graph_eager): the host picks pocket centers between the
+        halves."""
+        tracing.count("serve.graph_eager", key=_bucket_label(cfg_b.shapes))
         blocks = self._blocks(batch)
         if self._exported is not None:
             coords, scores = sample_poses(

@@ -13,14 +13,20 @@ Endpoints:
                                    "serve.cells_real": n,
                                    "serve.cells_padded": n,
                                    "serve.prot_rows_hit": n,
-                                   "serve.prot_rows_miss": n}}
+                                   "serve.prot_rows_miss": n,
+                                   "serve.graph_captures": {"LxPxR": n},
+                                   "serve.graph_replays": {"LxPxR": n},
+                                   "serve.graph_eager": {"LxPxR": n}}}
                      (the process's serving counters since it started,
                      utils/tracing.py; failed: requests that failed to
                      featurize or fit no bucket; padding rows: batch rows
                      that repeat the last request; cells: ligand atoms x
                      residues of the requests against rows x the bucket's
                      atoms x residues, so 1 - real/padded is the share of
-                     the model's pair work spent on padding)
+                     the model's pair work spent on padding; graph
+                     captures, replays and eager batches: how often the
+                     docking stage replayed its bucket's CUDA graphs,
+                     graphs.py)
   POST /dock_raw  -> body: .npz bytes; the arrays of request i carry the
                      prefix "r{i}_" (r0_lig_coords, r0_lig_feats,
                      r0_bond_edges, r0_las_mask, r0_rdkit_coords,
@@ -81,7 +87,9 @@ _PROTEIN_KEYS = ("protein_xyz", "esm_feat", "protein_full_coords")
 _HEALTH_COUNTERS = {"serve.requests": 0, "serve.requests_failed": 0,
                     "serve.batches": {}, "serve.padding_rows": {},
                     "serve.cells_real": 0, "serve.cells_padded": 0,
-                    "serve.prot_rows_hit": 0, "serve.prot_rows_miss": 0}
+                    "serve.prot_rows_hit": 0, "serve.prot_rows_miss": 0,
+                    "serve.graph_captures": {}, "serve.graph_replays": {},
+                    "serve.graph_eager": {}}
 
 
 def _group_npz(data: bytes) -> List[Dict[str, np.ndarray]]:

@@ -1,8 +1,9 @@
 """The edge-gate CUDA kernel against its plain PyTorch version, on the card:
 its launch over both attention directions (phi_rank1_pair); and the
 serving engine on the card (bf16 against fp32, bucket routing, the
-protein-row cache, the launch count under threads; FABind+ against the
-CPU, seeded best-of-N sampling); and a training step on the card against
+protein-row cache, the launch count under threads, the docking stage's
+CUDA graphs against eager docking; FABind+ against the CPU, seeded
+best-of-N sampling); and a training step on the card against
 the same step on the CPU, with the gate's gradients at a docking training
 shape; and the evaluation and confidence paths on the card against the
 CPU; and the structure-file path on the card (the ESM2 encoder against
@@ -27,6 +28,7 @@ from fabind_tpu_torch.ops import edge_gate
 from fabind_tpu_torch.ops.edge_gate import (phi_rank1_pair,
                                             phi_rank1_pair_reference)
 from fabind_tpu_torch.serve import DockingEngine
+from fabind_tpu_torch.utils import tracing
 
 pytestmark = pytest.mark.cuda
 
@@ -204,12 +206,129 @@ def test_launch_count_under_threads(cuda):
 
     threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
     edge_gate.KERNEL.launches = 0
+    replays = _graph_counts()["serve.graph_replays"]
     for t in threads:
         t.start()
     for t in threads:
         t.join(timeout=300)
     assert not any(t.is_alive() for t in threads)
     assert edge_gate.KERNEL.launches == 4 * LAUNCHES_PER_BATCH
+    # every threaded batch replayed its bucket's graphs (graphs.py)
+    assert (sum(_graph_counts()["serve.graph_replays"].values())
+            - sum(replays.values())) == 4
+    for got, want in zip(out, serial):
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g.coords, w.coords)
+
+
+def _graph_counts():
+    c = tracing.snapshot()["counters"]
+    return {k: dict(c.get(k, {})) for k in (
+        "serve.graph_captures", "serve.graph_replays", "serve.graph_eager")}
+
+
+@pytest.mark.parametrize("name,bf16", [("fabind", True), ("fabind", False),
+                                       ("fabind_plus", True),
+                                       ("fabflex", True)])
+def test_graphed_poses_equal_eager_on_card(cuda, name, bf16):
+    """The docking stage replayed as CUDA graphs (graphs.py) gives the
+    eager engine's poses bit for bit in every bucket, on the first call
+    (each bucket's first batch captured, then replayed) and on a second
+    (replays only); under replay the base configurations still launch
+    the gate 33 times per batch, FABind+ never."""
+    cfg = preset(name, **ENGINE_KW)
+    small = dataclasses.replace(cfg.shapes, max_ligand=8, max_pocket=16,
+                                max_protein=32)
+    kw = dict(buckets=[small, cfg.shapes], batch_size=2, seed=0, bf16=bf16)
+    raws = _requests() + [_raw(7, 20, 6), _raw(4, 10, 7), _raw(8, 30, 8),
+                          _raw(10, 36, 9)]
+    eager = DockingEngine(cfg, **kw)
+    eager._graphs = None
+    want = eager.dock_raw(raws)
+    eng = DockingEngine(cfg, **kw)
+    assert eng._graphs is not None
+    n_batches = len(list(eng.batches(raws, [None] * len(raws))))
+    first = eng.dock_raw(raws)
+    before = _graph_counts()
+    edge_gate.KERNEL.launches = 0
+    second = eng.dock_raw(raws)
+    after = _graph_counts()
+    per_batch = 0 if name == "fabind_plus" else LAUNCHES_PER_BATCH
+    assert edge_gate.KERNEL.launches == n_batches * per_batch
+    assert eng._graphs.captured == 2
+    assert (sum(after["serve.graph_replays"].values())
+            - sum(before["serve.graph_replays"].values())) == n_batches
+    assert after["serve.graph_captures"] == before["serve.graph_captures"]
+    for got in (first, second):
+        for g, w in zip(got, want):
+            assert g.error == w.error
+            if w.error is None:
+                np.testing.assert_array_equal(g.coords, w.coords)
+                assert g.confidence == w.confidence
+                if w.pocket_coords is not None:
+                    np.testing.assert_array_equal(g.pocket_coords,
+                                                  w.pocket_coords)
+
+
+RECORDED = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm",
+            "fabind_tpu_torch::edge_gate_pair")
+
+
+def _recorded(eng, raws):
+    """(name, operand shapes, whether it ran on the device) of every
+    product and gate call a dock_raw records under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as p:
+        eng.dock_raw(raws)
+        torch.cuda.synchronize()
+    n = {"aten::mm": 2, "aten::bmm": 2, "aten::addmm": 3, "aten::baddbmm": 3}
+    return [(e.name, [list(s) for s in e.input_shapes[:n.get(e.name, 5)]],
+             getattr(e, "self_device_time_total", 0) > 0)
+            for e in p.events() if e.name in RECORDED]
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+def test_graphed_products_keep_their_records_on_card(cuda, bf16):
+    """Under replay every matrix product and gate call of the eager
+    docking stage is still an operator call with its own record, at the
+    same shapes and in the same order, with its kernel's device time under
+    it wherever the eager call had it, so the rooflines that read those
+    records read the same work."""
+    raws = _requests() + [_raw(7, 20, 6), _raw(8, 30, 8)]
+    eager = _engine(bf16=bf16)
+    eager._graphs = None
+    eng = _engine(bf16=bf16)
+    eager.dock_raw(raws)
+    eng.dock_raw(raws)                               # captures
+    want, got = _recorded(eager, raws), _recorded(eng, raws)
+    assert sum(r[0] == "aten::addmm" for r in want) > 100
+    assert [r[:2] for r in got] == [r[:2] for r in want]
+    assert sum(r[2] for r in got) >= sum(r[2] for r in want)
+
+
+def test_graphed_threads_on_their_own_streams(cuda):
+    """Threads that each dock under a CUDA stream of their own replay one
+    bucket's graphs in turn and still get the poses of serial calls."""
+    eng = _engine()
+    work = [[_raw(5 + i, 14, 10 + i), _raw(6, 12, 20 + i)] for i in range(4)]
+    serial = [eng.dock_raw(w) for w in work]
+    out = [None] * 4
+
+    def call(i):
+        with torch.cuda.stream(torch.cuda.Stream()):
+            out[i] = eng.dock_raw(work[i])
+            torch.cuda.current_stream().synchronize()
+
+    replays = _graph_counts()["serve.graph_replays"]
+    threads = [threading.Thread(target=call, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    assert not any(t.is_alive() for t in threads)
+    assert (sum(_graph_counts()["serve.graph_replays"].values())
+            - sum(replays.values())) == 4
     for got, want in zip(out, serial):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g.coords, w.coords)

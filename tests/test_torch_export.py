@@ -195,6 +195,33 @@ def test_exported_engine_warmup_and_screen(setup):
         np.testing.assert_array_equal(p.coords, d.coords)
 
 
+def test_exported_engine_docks_eagerly(setup, monkeypatch):
+    """An exported engine replays no docking graph, where a live one on
+    the same device would (the capture's stand-in, graphs.Rerun, on the
+    CPU): its programs run whole, each batch counted under
+    serve.graph_eager."""
+    from fabind_tpu_torch import graphs
+    from fabind_tpu_torch.utils import tracing
+
+    monkeypatch.setattr(graphs, "backend_for", lambda device: graphs.Rerun)
+    _, _, _, _, out, _, _, _ = setup
+    exported = DockingEngine.from_exported(out, device="cpu")
+    assert exported._graphs is None
+    live = DockingEngine(setup[0], state_dict=setup[3],
+                         buckets=[_small(setup[0].shapes), setup[0].shapes],
+                         batch_size=2, device="cpu")
+    assert live._graphs is not None
+
+    def eager():
+        return dict(tracing.snapshot()["counters"].get("serve.graph_eager",
+                                                       {}))
+
+    before = eager()
+    exported.dock_raw(_small_raws())
+    after = eager()
+    assert after.get("8x16x32", 0) - before.get("8x16x32", 0) == 2
+
+
 def test_exported_engine_under_threads(setup):
     """Three threads docking through one exported engine at once (as the
     daemon's handler threads do) get the poses of serial calls."""

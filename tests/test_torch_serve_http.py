@@ -96,7 +96,9 @@ def test_http_health_dock_raw_and_screen(server):
     assert set(counters) == {"serve.requests", "serve.requests_failed",
                              "serve.batches", "serve.padding_rows",
                              "serve.cells_real", "serve.cells_padded",
-                             "serve.prot_rows_hit", "serve.prot_rows_miss"}
+                             "serve.prot_rows_hit", "serve.prot_rows_miss",
+                             "serve.graph_captures", "serve.graph_replays",
+                             "serve.graph_eager"}
 
     raws = [make_raw(n=5, nr=20, seed=1), make_raw(n=12, nr=40, seed=2),
             make_raw(n=40, nr=40, seed=3)]
@@ -127,8 +129,9 @@ def test_http_health_dock_raw_and_screen(server):
 def test_http_health_counts_requests(server):
     """GET /health's counters move by what a /dock_raw call did: its
     requests, the one that fits no bucket, a batch with one padding row in
-    each bucket, the requests' cells against the batches', and per batch a
-    protein-row miss and a hit (the padding row repeats it)."""
+    each bucket, the requests' cells against the batches', per batch a
+    protein-row miss and a hit (the padding row repeats it), and on the
+    CPU each batch docked eagerly (no graph captured or replayed)."""
     _, base = server
 
     def counters():
@@ -150,10 +153,12 @@ def test_http_health_counts_requests(server):
                      "serve.cells_real": 5 * 20 + 12 * 40,
                      "serve.cells_padded": 2 * 8 * 32 + 2 * 16 * 48,
                      "serve.prot_rows_hit": 2, "serve.prot_rows_miss": 2}
-    for key in ("serve.batches", "serve.padding_rows"):
+    for key in ("serve.batches", "serve.padding_rows", "serve.graph_eager"):
         for bucket in ("8x16x32", "16x24x48"):
             assert (after[key].get(bucket, 0)
                     - before[key].get(bucket, 0)) == 1
+    for key in ("serve.graph_captures", "serve.graph_replays"):
+        assert after[key] == before[key]
 
 
 def test_http_refusals(server):

@@ -173,6 +173,9 @@ def test_dock_raw_counters_and_spans(engine, traced):
     # rows: [0, 2], [3, 3 (padding)], [1, 1 (padding)]; request 3 has
     # request 0's protein
     assert c["serve.prot_rows_miss"] == 3 and c["serve.prot_rows_hit"] == 3
+    # on the CPU every batch docks eagerly (graphs.py)
+    assert c["serve.graph_eager"] == {small: 2, large: 1}
+    assert "serve.graph_replays" not in c
     m = engine.cfg.model
 
     by = _by_name(snap)
