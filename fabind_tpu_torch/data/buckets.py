@@ -175,6 +175,12 @@ def sort_bucket_cfgs(cfg: FABindConfig, buckets) -> List[FABindConfig]:
     return [dataclasses.replace(cfg, shapes=s) for s in bs]
 
 
+def bucket_label(shapes) -> str:
+    """A bucket's key in spans and counters: "LxPxR" (ligand, pocket and
+    protein sizes)."""
+    return f"{shapes.max_ligand}x{shapes.max_pocket}x{shapes.max_protein}"
+
+
 def route_sample(s, bucket_cfgs) -> Optional[FABindConfig]:
     """The smallest bucket the sample fits, or None when it fits none.
 

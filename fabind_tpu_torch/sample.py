@@ -32,6 +32,18 @@ replica's contiguous block of rows, in the replica's thread, with its row
 map (the masks the whole batch draws at those rows); the host step between
 the halves (DBSCAN and the cluster picks, one RandomState row after row)
 stays on the whole batch, so the picks are one replica's.
+
+Traced (utils/tracing.py): `sample.pocket_half` and `sample.dock_half`
+around each half (ids: pass, bucket; the model's `model.*` spans nest under
+them, in the replica's thread); `sample.pass` (ids: pass, bucket and the
+drawn `pocket` and `dock` recycle counts) around the calling thread's part
+of a pass after its pocket half was launched: `sample.readback` (the wait
+for the host copies of the pass's logits and default center),
+`sample.cluster` (DBSCAN and the pass's picks) and the launch of its dock
+half. The fixed mode reads back and clusters once per batch, before the
+passes, and picks inside each pass's `sample.cluster`. Counters:
+`sample.passes` by bucket, and `sample.centers` by where each row's center
+came from, "cluster" or "default" (GET /health reports both).
 """
 from __future__ import annotations
 
@@ -42,12 +54,14 @@ import torch
 from scipy.spatial.distance import cdist
 
 from fabind_tpu_torch.config import ModelConfig
+from fabind_tpu_torch.data.buckets import bucket_label
 from fabind_tpu_torch.data.types import to_device
 from fabind_tpu_torch.models.layers import (RowMap, dropout_seed,
                                             recycle_count)
 from fabind_tpu_torch.ops.dropout import site_id
 from fabind_tpu_torch.ops.gumbel import pocket_center_rounded
 from fabind_tpu_torch.parallel.dp import ReplicaSet
+from fabind_tpu_torch.utils import tracing
 
 Tensor = torch.Tensor
 
@@ -111,14 +125,23 @@ def pick_cluster_centers(clusters: list, choose_prob: float,
     probability choose_prob, else the default center. The draws (randint,
     then rand, per row with clusters) are the JAX package's, so one
     RandomState gives the same picks on both sides."""
+    return _picks(clusters, choose_prob, default_centers, rng)[0]
+
+
+def _picks(clusters: list, choose_prob: float, default_centers: np.ndarray,
+           rng: np.random.RandomState) -> Tuple[np.ndarray, np.ndarray]:
+    """pick_cluster_centers' centers and, per row, whether its center is a
+    cluster's."""
     centers = default_centers.copy()
+    took = np.zeros(len(clusters), bool)
     for b, cl in enumerate(clusters):
         if not cl:
             continue
         cid = rng.randint(0, len(cl))
         if rng.rand() < choose_prob:
             centers[b] = cl[cid]
-    return centers
+            took[b] = True
+    return centers, took
 
 
 class _HostCopy:
@@ -268,6 +291,8 @@ def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
                              replicas.row_map(r, B))
                  for r in range(len(blocks))]
     rng = np.random.RandomState((seed * 1000003 + batch_idx) % (2 ** 31))
+    bucket = bucket_label(cfg.shapes)
+    rows = sum(b.batch_size for b in blocks)
     if use_clustering:
         prot_xyz = np.concatenate([b.prot_xyz.float().cpu().numpy()
                                    for b in blocks])
@@ -282,8 +307,10 @@ def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
     def cluster_centers(clusters, default: np.ndarray) -> List[Tensor]:
         """The pass's picked centers [B, 3], as each block's rows on its
         device."""
-        centers = pick_cluster_centers(clusters, m.choose_cluster_prob,
-                                       default, rng)
+        centers, took = _picks(clusters, m.choose_cluster_prob, default, rng)
+        taken = int(took.sum())
+        tracing.count("sample.centers", taken, key="cluster")
+        tracing.count("sample.centers", len(took) - taken, key="default")
         out, start = [], 0
         for b in blocks:
             n = b.batch_size
@@ -295,57 +322,90 @@ def sample_poses(model, batch, cfg, sample_size: int, seed: int = 0,
     def probs_of(hosts) -> np.ndarray:
         return np.concatenate([_probs(h) for h in hosts])
 
+    def pass_span(s: int, sd: int):
+        """The calling thread's span of pass s (the counts its halves
+        draw), and the pass counted."""
+        pc, dc = recycle_counts(m, sd)
+        tracing.count("sample.passes", key=bucket)
+        if not use_clustering:
+            tracing.count("sample.centers", rows, key="default")
+        return tracing.span("sample.pass", **{"pass": s}, bucket=bucket,
+                            pocket=pc, dock=dc)
+
+    def half(name: str, s: int):
+        """The span of a half of pass s, in the thread that runs it."""
+        return tracing.span(name, **{"pass": s}, bucket=bucket)
+
     seeds = [pass_seed(seed, batch_idx, s) for s in range(sample_size)]
     docks = []
     with torch.inference_mode():
         if pocket_mode == "stochastic":
-            def pocket_half(r, b, sd):
-                pocket, center = parts[r][0](b, sd)
-                host = ((_HostCopy(pocket[2]), _HostCopy(center))
-                        if use_clustering else None)
+            def pocket_half(r, b, s, sd):
+                with half("sample.pocket_half", s):
+                    pocket, center = parts[r][0](b, sd)
+                    host = ((_HostCopy(pocket[2]), _HostCopy(center))
+                            if use_clustering else None)
                 return pocket, center, host
 
-            def dock_half(r, b, pocket, center, sd):
-                return parts[r][1](b, pocket, center, sd)
+            def dock_half(r, b, pocket, center, s, sd):
+                with half("sample.dock_half", s):
+                    return parts[r][1](b, pocket, center, sd)
 
             # every pocket half is launched, with the copy of its logits
             # and its default center, before the first copy is read: the
             # host clusters pass s while the device runs the pocket halves
             # behind it and the docks already queued
-            pockets = [each(lambda r, b, sd=sd: pocket_half(r, b, sd))
-                       for sd in seeds]
-            for sd, futs in zip(seeds, pockets):
-                outs = [f.result() for f in futs]
-                centers = [c for _, c, _ in outs]
-                if use_clustering:
-                    centers = cluster_centers(dbscan_clusters(
-                        probs_of([h[0] for _, _, h in outs]), prot_xyz,
-                        prot_mask, m.dbscan_eps, m.dbscan_min_samples),
-                        np.concatenate([h[1].numpy() for _, _, h in outs]))
-                docks.append(each(
-                    lambda r, b, o, c, sd=sd: dock_half(r, b, o[0], c, sd),
-                    outs, centers))
+            pockets = [each(lambda r, b, s=s, sd=sd: pocket_half(r, b, s, sd))
+                       for s, sd in enumerate(seeds)]
+            for s, (sd, futs) in enumerate(zip(seeds, pockets)):
+                with pass_span(s, sd):
+                    outs = [f.result() for f in futs]
+                    centers = [c for _, c, _ in outs]
+                    if use_clustering:
+                        with tracing.span("sample.readback"):
+                            probs = probs_of([h[0] for _, _, h in outs])
+                            default = np.concatenate([h[1].numpy()
+                                                      for _, _, h in outs])
+                        with tracing.span("sample.cluster"):
+                            centers = cluster_centers(dbscan_clusters(
+                                probs, prot_xyz, prot_mask, m.dbscan_eps,
+                                m.dbscan_min_samples), default)
+                    docks.append(each(
+                        lambda r, b, o, c, s=s, sd=sd: dock_half(
+                            r, b, o[0], c, s, sd), outs, centers))
         else:
             def pocket_half(r, b):
-                pocket = parts[r][0](b)
-                default = pocket_center_rounded(
-                    pocket[2], b.prot_xyz, b.prot_mask, m.gs_tau,
-                    m.gs_hard).float()
+                with tracing.span("sample.pocket_half", bucket=bucket):
+                    pocket = parts[r][0](b)
+                    default = pocket_center_rounded(
+                        pocket[2], b.prot_xyz, b.prot_mask, m.gs_tau,
+                        m.gs_hard).float()
                 return pocket, default
+
+            def dock_half(r, b, c, s, sd):
+                with half("sample.dock_half", s):
+                    return parts[r][1](b, c, sd)
 
             outs = [f.result() for f in each(pocket_half)]
             defaults = [d for _, d in outs]
             if use_clustering:
-                clusters = dbscan_clusters(
-                    probs_of([_HostCopy(p[2]) for p, _ in outs]), prot_xyz,
-                    prot_mask, m.dbscan_eps, m.dbscan_min_samples)
-                default_np = np.concatenate([d.cpu().numpy()
-                                             for d in defaults])
-            for sd in seeds:
-                centers = (cluster_centers(clusters, default_np)
-                           if use_clustering else defaults)
-                docks.append(each(
-                    lambda r, b, c, sd=sd: parts[r][1](b, c, sd), centers))
+                with tracing.span("sample.readback"):
+                    probs = probs_of([_HostCopy(p[2]) for p, _ in outs])
+                    default_np = np.concatenate([d.cpu().numpy()
+                                                 for d in defaults])
+                with tracing.span("sample.cluster"):
+                    clusters = dbscan_clusters(
+                        probs, prot_xyz, prot_mask, m.dbscan_eps,
+                        m.dbscan_min_samples)
+            for s, sd in enumerate(seeds):
+                with pass_span(s, sd):
+                    centers = defaults
+                    if use_clustering:
+                        with tracing.span("sample.cluster"):
+                            centers = cluster_centers(clusters, default_np)
+                    docks.append(each(
+                        lambda r, b, c, s=s, sd=sd: dock_half(r, b, c, s, sd),
+                        centers))
         passes = [replicas.gather([f.result() for f in futs])
                   for futs in docks]
     return (torch.stack([c for c, _ in passes]),

@@ -97,6 +97,7 @@ from fabind_tpu_torch.config import FABindConfig
 from fabind_tpu_torch.data import featurize as F
 from fabind_tpu_torch.data.batching import (SampleTooLarge, build_sample,
                                             collate, uniform_random_rotation)
+from fabind_tpu_torch.data.buckets import bucket_label as _bucket_label
 from fabind_tpu_torch.data.buckets import route_sample, sort_bucket_cfgs
 from fabind_tpu_torch.data.torsion import randomize_torsions
 from fabind_tpu_torch.data.types import FABindBatch, dummy_arrays, to_device
@@ -142,12 +143,6 @@ def _resolve_device(device) -> torch.device:
             "DockingEngine: CUDA is not available; pass device='cpu' to "
             "run on the CPU")
     return device
-
-
-def _bucket_label(shapes) -> str:
-    """A bucket's key in spans and counters: "LxPxR" (ligand, pocket and
-    protein sizes)."""
-    return f"{shapes.max_ligand}x{shapes.max_pocket}x{shapes.max_protein}"
 
 
 def _count_batch(chunk, shapes, bucket: str, batch_size: int) -> None:

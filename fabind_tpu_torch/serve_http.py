@@ -16,7 +16,10 @@ Endpoints:
                                    "serve.prot_rows_miss": n,
                                    "serve.graph_captures": {"LxPxR": n},
                                    "serve.graph_replays": {"LxPxR": n},
-                                   "serve.graph_eager": {"LxPxR": n}}}
+                                   "serve.graph_eager": {"LxPxR": n},
+                                   "sample.passes": {"LxPxR": n},
+                                   "sample.centers": {"cluster": n,
+                                                      "default": n}}}
                      (the process's serving counters since it started,
                      utils/tracing.py; failed: requests that failed to
                      featurize or fit no bucket; padding rows: batch rows
@@ -26,7 +29,10 @@ Endpoints:
                      the model's pair work spent on padding; graph
                      captures, replays and eager batches: how often the
                      docking stage replayed its bucket's CUDA graphs,
-                     graphs.py)
+                     graphs.py; sample passes: best-of-N passes run;
+                     sample centers: the rows of those passes docked at a
+                     DBSCAN cluster's center or at the default one,
+                     sample.py)
   POST /dock_raw  -> body: .npz bytes; the arrays of request i carry the
                      prefix "r{i}_" (r0_lig_coords, r0_lig_feats,
                      r0_bond_edges, r0_las_mask, r0_rdkit_coords,
@@ -89,7 +95,8 @@ _HEALTH_COUNTERS = {"serve.requests": 0, "serve.requests_failed": 0,
                     "serve.cells_real": 0, "serve.cells_padded": 0,
                     "serve.prot_rows_hit": 0, "serve.prot_rows_miss": 0,
                     "serve.graph_captures": {}, "serve.graph_replays": {},
-                    "serve.graph_eager": {}}
+                    "serve.graph_eager": {}, "sample.passes": {},
+                    "sample.centers": {}}
 
 
 def _group_npz(data: bytes) -> List[Dict[str, np.ndarray]]:

@@ -98,7 +98,8 @@ def test_http_health_dock_raw_and_screen(server):
                              "serve.cells_real", "serve.cells_padded",
                              "serve.prot_rows_hit", "serve.prot_rows_miss",
                              "serve.graph_captures", "serve.graph_replays",
-                             "serve.graph_eager"}
+                             "serve.graph_eager", "sample.passes",
+                             "sample.centers"}
 
     raws = [make_raw(n=5, nr=20, seed=1), make_raw(n=12, nr=40, seed=2),
             make_raw(n=40, nr=40, seed=3)]
