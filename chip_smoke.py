@@ -43,7 +43,10 @@ Phases, each of which raises on failure (non-zero exit):
   6. best-of-N sampling (preset `fabind_plus_sampling`, bf16, stochastic
      pocket mode): `dock_best_of` of 16 requests at 8 passes returns each
      request's most confident pose, the same seed the same poses bit for
-     bit and another seed other ones; without dropout, recycle draws and
+     bit and another seed other ones; after a warm call of one pass a
+     batch every dock half replays its bucket's stochastic docking graphs
+     (no capture, none eager) and equals the eager dock halves' poses bit
+     for bit; without dropout, recycle draws and
      clustering every pass of a batch is the same pose; the post-optimized
      winner is float32 and finite, its configuration loss no higher than
      the unrefined winner's. Times: best-of-8
@@ -295,7 +298,7 @@ from fabind_tpu_torch.postopt import configuration_loss
 from fabind_tpu_torch.sample import (dbscan_clusters, live_halves,
                                      pass_seed, recycle_counts, sample_poses,
                                      stochastic_dock, stochastic_pocket)
-from fabind_tpu_torch.serve import DockingEngine
+from fabind_tpu_torch.serve import DockingEngine, _bucket_label
 from fabind_tpu_torch.serve_http import make_server
 from fabind_tpu_torch.train.checkpoints import (HEAD_PREFIXES,
                                                 TrainCheckpointer,
@@ -931,6 +934,38 @@ def check_graphed(engine, raws, poses, counter, before, what):
     check(d.max() == 0.0, f"{what}: graphed vs eager poses differ")
 
 
+def check_graphed_best_of(engine, raws, poses, before):
+    """After a warm call every dock half of a dock_best_of at SAMPLES
+    passes (`poses`; `before`, graph_counts() just before it) replayed its
+    bucket's stochastic docking graphs, nothing was captured or docked
+    eagerly, and the same call with the graphs set aside gives the same
+    poses and confidences bit for bit."""
+    after = graph_counts()
+    moved = {k: {b: n - before[k].get(b, 0) for b, n in after[k].items()
+                 if n != before[k].get(b, 0)} for k in after}
+    halves = {}
+    for _, cfg_b, _, _ in engine.batches(raws, [None] * len(raws)):
+        label = _bucket_label(cfg_b.shapes)
+        halves[label] = halves.get(label, 0) + SAMPLES
+    print(f"best-of-{SAMPLES} after its warm call: graph replays by bucket "
+          f"{moved['serve.graph_replays']}, dock halves {halves}, captures "
+          f"{moved['serve.graph_captures']}, eager "
+          f"{moved['serve.graph_eager']}")
+    check(moved["serve.graph_replays"] == halves
+          and not moved["serve.graph_captures"]
+          and not moved["serve.graph_eager"],
+          f"best-of-N: replays {moved} for dock halves {halves}")
+    with eager_docking(engine):
+        eager = engine.dock_best_of(raws, sample_size=SAMPLES,
+                                    seed=SAMPLE_SEED)
+    d = pose_dist(eager, poses)
+    print(f"best-of-{SAMPLES} graphed vs eager dock halves, {len(d)} atoms: "
+          f"max per-atom distance {d.max():.3e} A")
+    check(d.max() == 0.0 and all(
+        p.confidence == e.confidence for p, e in zip(poses, eager)),
+        "best-of-N: graphed vs eager poses differ")
+
+
 def serve_main_path(engine, raws, what, per_batch=None):
     """dock_raw of every request with the counts set to 0 just before and
     read just after: (poses, BucketLaunches, total launches, seconds).
@@ -1197,7 +1232,9 @@ def time_sampling_pass(engine, batch, cfg_b, card_line):
     m, shapes = engine.cfg.model, cfg_b.shapes
     xyz = batch.prot_xyz.float().cpu().numpy()
     mask = batch.prot_mask.cpu().numpy()
-    pocket_fn, dock_fn = live_halves(engine.model, cfg_b)
+    pocket_fn, dock_fn = live_halves(
+        engine.model, cfg_b, dock=engine._graph_dock_half(batch, cfg_b,
+                                                          SAMPLES))
     pocket_ms, dock_ms, dbscan_ms, n_clusters = [], [], [], []
     for s in range(SAMPLES):
         seed = pass_seed(SAMPLE_SEED, 0, s)
@@ -1223,7 +1260,8 @@ def time_sampling_pass(engine, batch, cfg_b, card_line):
         n_clusters.append(sum(len(c) for c in clusters))
     print(f"time best-of-N pass, batch of {BATCH} bucket "
           f"{bucket_label(shapes)} ({SAMPLES} passes): pocket half median "
-          f"{statistics.median(pocket_ms):.2f} ms, docking half median "
+          f"{statistics.median(pocket_ms):.2f} ms, docking half (graphs) "
+          f"median "
           f"{statistics.median(dock_ms):.2f} ms (of "
           f"{[round(x, 1) for x in dock_ms]}: recycle counts are drawn per "
           f"pass), host DBSCAN median {statistics.median(dbscan_ms):.2f} ms "
@@ -1237,8 +1275,17 @@ def best_of_phase(raws, buckets, card_line):
     engine = DockingEngine(cfg, buckets=buckets, batch_size=BATCH, seed=0)
     engine.warmup()
     rs = raws[:N_BEST_OF]
+    # one pass a batch captures each bucket's stochastic docking graphs
+    t0 = time.perf_counter()
+    engine.dock_best_of(rs, sample_size=1, seed=SAMPLE_SEED)
+    torch.cuda.synchronize()
+    print(f"best-of-N warm call, one pass a batch (captures the docking "
+          f"graphs of its buckets): {time.perf_counter() - t0:.3f} s "
+          f"[{card_line}]")
     edge_gate.KERNEL.launches = 0
+    before = graph_counts()
     poses = time_best_of(engine, rs, SAMPLES, "bf16 stochastic", card_line)
+    check_graphed_best_of(engine, rs, poses, before)
     check(edge_gate.KERNEL.launches == 0,
           f"best-of-N launched the edge gate {edge_gate.KERNEL.launches} "
           f"times")

@@ -1,26 +1,39 @@
-"""CUDA graphs of the docking stage, for deterministic serving.
+"""CUDA graphs of the docking stage, for serving and best-of-N sampling.
 
 A live DockingEngine with one replica on a CUDA device (serve.py) docks
-each batch's predicted pocket by replaying its bucket's graphs instead of
-launching every kernel of the docking stage one by one from Python. The
-pocket stage, the pocket center and the crop stay eager, called through
-their usual names (models/fabind.py), and so does post-optimization.
+each batch's predicted pocket, and each best-of-N pass's dock half, by
+replaying its bucket's graphs instead of launching every kernel of the
+docking stage one by one from Python. The pocket stage (a pass's pocket
+half), the pocket center and the crop stay eager, called through their
+usual names (models/fabind.py, sample.py), and so does post-optimization.
 
 - Segments. The docking stage (`FABind._dock`) is captured as a chain of
   graphs split at each call of a matrix product (aten::mm, addmm, bmm,
-  baddbmm) and of the edge gate (`fabind_tpu_torch::edge_gate_pair`).
-  Those calls run eagerly between the segments, through their registered
-  operators, so each keeps its operator record and its launch as on the
-  eager path: a product writes into the output it returned at capture
-  through its out= overload, the gate's two outputs are copied there. A
-  dispatch mode (`_Segmenter`) makes the split while the chain captures:
+  baddbmm), of the edge gate (`fabind_tpu_torch::edge_gate_pair`) and of
+  dropout (`fabind_tpu_torch::dropout`). Those calls run eagerly between
+  the segments, through their registered operators, so each keeps its
+  operator record and its launch as on the eager path: a product writes
+  into the output it returned at capture through its out= overload, the
+  gate's two outputs are copied there, dropout's kernel writes there
+  (ops/dropout.py `writing_into`; the plain version's output is copied).
+  A dispatch mode (`_Segmenter`) makes the split while the chain captures:
   it runs composite operations (linear, matmul, einsum) as eager dispatch
   does, so the products inside them are the ones it sees, and opens a
   segment at the first operation after an eager call that is not a view.
+- The recycle round is the unit of replay. The chain holds the steps
+  before the recycle loop, ONE round (`_Rounds`, the loop's `rounds` hook
+  in models/att_model.py, between two marks of the chain) and the heads.
+  A replay at recycle count k runs the round k times, keyed 0..k-2 and
+  then n_iter - 1 as the Python loop keys them, copying each round's
+  output coordinates into its input between rounds; so one capture serves
+  every count, the count an input of the replay.
 - Static inputs. A bucket's chain reads fixed tensors: the batch fields
   the docking stage reads (found at capture), the pocket stage's node
-  embeddings and the crop's indices and mask. Each batch copies its own
-  into them before the replay.
+  embeddings and the crop's indices and mask, and in a stochastic chain
+  the pass's seed and the dropout's round (the loop's, and 0 outside it),
+  int64 tensors made before the capture. Each batch copies its own into
+  them before the replay (the seed as the eager forward uploads it), so a
+  capture uploads nothing and bakes no seed in.
 - Capture. A bucket's first batch captures the bucket from copies of its
   inputs on a side stream, into a memory pool of its own, and is the
   first replay; every later batch replays. At capture an eager call
@@ -28,18 +41,21 @@ their usual names (models/fabind.py), and so does post-optimization.
   shapes, and it keeps its tensors without owning their memory, so the
   pool reuses what the capture frees as the eager path's allocator would
   (the memory stays near the eager path's). A bucket is a shape bucket at
-  one batch size, captured for the use_stage2, ctx_k and recycle count of
-  its first batch; a batch with others docks eagerly. A capture that
-  fails leaves its bucket eager, with a warning.
+  one batch size and a kind of forward: deterministic, or stochastic (the
+  dock half of a best-of-N pass, on the whole batch), a chain each,
+  captured for the use_stage2 and ctx_k of its first batch; a batch with
+  others, a forward of the other kind or a recycle count given as a
+  tensor docks eagerly. A capture that fails leaves its bucket eager, with
+  a warning.
 - Concurrency. Replays of one bucket are serialized by the bucket's lock,
   held from the copies in through the copies of its outputs out of the
-  graph's memory, so batches launched before any is read back keep their
-  own results; on the card the next replay's stream waits for the last
-  one's copies out, so callers on other streams keep theirs too. A
-  capture runs in CUDA's thread-local capture mode, so other threads keep
-  serving other buckets meanwhile.
+  graph's memory, so batches (and passes) launched before any is read
+  back keep their own results; on the card the next replay's stream waits
+  for the last one's copies out, so callers on other streams keep theirs
+  too. A capture runs in CUDA's thread-local capture mode, so other
+  threads keep serving other buckets meanwhile.
 
-The capture step is a backend made per bucket: `CudaGraphs` on the card
+The capture step is a backend made per chain: `CudaGraphs` on the card
 (`backend_for`), or `Rerun`, which keeps each segment's ATen operations
 and re-runs them in place, so the segment runner runs off the card (the
 CPU tests use it).
@@ -57,6 +73,10 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_map
 
+from fabind_tpu_torch.models.layers import (RowMap, StochasticKeys,
+                                            active_stochastic,
+                                            enter_stochastic, recycle_round)
+from fabind_tpu_torch.ops import dropout
 from fabind_tpu_torch.ops import edge_gate  # noqa: F401  (the gate operator)
 from fabind_tpu_torch.utils import tracing
 
@@ -225,6 +245,10 @@ def _gate_op():
     return torch.ops.fabind_tpu_torch.edge_gate_pair.default
 
 
+def _dropout_op():
+    return torch.ops.fabind_tpu_torch.dropout.default
+
+
 def _leaves(x) -> list:
     """The leaves of an operator's arguments or outputs: a value, or a
     tuple or list of values and tuples or lists of them."""
@@ -262,7 +286,7 @@ def _kind(func, device_type: str) -> int:
         backend = getattr(torch._C.DispatchKey, device_type.upper())
         if func.namespace == "profiler":          # a span's range, host only
             kind = _PASS
-        elif func in _PRODUCTS or func is _gate_op():
+        elif func in _PRODUCTS or func in (_gate_op(), _dropout_op()):
             kind = _EAGER
         elif (torch._C._dispatch_has_kernel_for_dispatch_key(name, _COMPOSITE)
               and not torch._C._dispatch_has_kernel_for_dispatch_key(
@@ -316,12 +340,13 @@ def _keep_requires_grad(out) -> None:
 
 
 class _Segmenter(TorchDispatchMode):
-    """Entered while a chain captures: hands each product and gate call to
-    the chain, which runs it eagerly between segments; runs a composite
-    operation's kernel with the mode entered, so its parts are the
-    operations seen, as on the eager path; opens a segment at an operation
-    that is not a view; refuses what a graph cannot hold (a read-back to
-    the host, an output shape that depends on the data, a random draw)."""
+    """Entered while a chain captures: hands each product, gate and
+    dropout call to the chain, which runs it eagerly between segments;
+    runs a composite operation's kernel with the mode entered, so its
+    parts are the operations seen, as on the eager path; opens a segment
+    at an operation that is not a view; refuses what a graph cannot hold
+    (a read-back to the host, an output shape that depends on the data, a
+    random draw)."""
 
     def __init__(self, chain: "SegmentChain"):
         super().__init__()
@@ -365,18 +390,27 @@ class _Segmenter(TorchDispatchMode):
 
 
 class SegmentChain:
-    """fn(*args) captured once as graph segments split at each product and
-    gate call, and replayed with those calls launched eagerly between the
-    segments. `outputs` are fn's outputs at fixed addresses, rewritten by
-    each replay; `segments` the captured segments and `calls` the
-    operators called between them, in order."""
+    """fn(*args) captured once as graph segments split at each product,
+    gate and dropout call, and replayed with those calls launched eagerly
+    between the segments. `outputs` are fn's outputs at fixed addresses,
+    rewritten by each replay; `segments` the captured segments and `calls`
+    the operators called between them, in order. Without fn the chain is
+    empty until `capture`; fn may `mark` the chain while it captures, and
+    the steps between two marks replay on their own (`replay(start,
+    stop)`)."""
 
-    def __init__(self, backend, fn: Callable, *args):
+    def __init__(self, backend, fn: Optional[Callable] = None, *args):
         self.backend = backend
         self.segments: List = []
         self.calls: List = []
         self._steps: List[Callable[[], None]] = []
         self.is_open = False
+        self.outputs = None
+        if fn is not None:
+            self.capture(fn, *args)
+
+    def capture(self, fn: Callable, *args) -> None:
+        backend = self.backend
         with backend.capturing():
             try:
                 with _Segmenter(self):
@@ -389,6 +423,12 @@ class SegmentChain:
                     with contextlib.suppress(Exception):
                         backend.end()
                 raise
+
+    def mark(self) -> int:
+        """Ends the open segment, so that the steps before and after this
+        point replay apart; returns the index of the next step."""
+        self._close()
+        return len(self._steps)
 
     @property
     def gates(self) -> List:
@@ -408,9 +448,9 @@ class SegmentChain:
             self._steps.append(seg.replay)
 
     def eager(self, func, args, kwargs):
-        """A product or gate call at capture: ends the open segment and
-        returns outputs allocated at the shapes of func's meta kernel,
-        which the call writes at replay and later segments read."""
+        """A product, gate or dropout call at capture: ends the open
+        segment and returns outputs allocated at the shapes of func's meta
+        kernel, which the call writes at replay and later segments read."""
         self._close()
         device = _tensors(args, kwargs)[0].device
         product = _product_out(func, args)
@@ -435,16 +475,23 @@ class SegmentChain:
                                                  **kwargs))
         else:
             outs = _tensors(dst)
+            # a dropout launch on the card writes its output in place
+            into = (functools.partial(dropout.writing_into, outs[0])
+                    if func is _dropout_op() else contextlib.nullcontext)
 
             def call():
-                for o, r in zip(outs, _tensors(func(*args, **kwargs))):
-                    o.copy_(r)
+                with into():
+                    res = _tensors(func(*args, **kwargs))
+                for o, r in zip(outs, res):
+                    if r.data_ptr() != o.data_ptr():
+                        o.copy_(r)
             self._steps.append(call)
         self.calls.append(func)
         return out
 
-    def replay(self) -> None:
-        for step in self._steps:
+    def replay(self, start: int = 0, stop: Optional[int] = None) -> None:
+        """Replays steps start..stop (default: all of them)."""
+        for step in self._steps[start:stop]:
             step()
 
 
@@ -489,22 +536,61 @@ def _copy_in(dst: Tensor, src: Tensor, what: str) -> None:
     dst.copy_(src)
 
 
-class _Bucket:
-    """One bucket's docking stage: captured at its first batch and
-    replayed for it and every later one."""
+class _Rounds:
+    """The recycle loop while a chain captures (EfficientMCAttModel.forward's
+    `rounds`): one round between two marks of the chain, its dropout keyed
+    by the round tensor `key` (None in a deterministic forward), so that a
+    replay runs those steps once per round of any count. Keeps the round's
+    coordinates in (`x_in`) and out (`x_out`), which a replay carries from
+    one round to the next."""
 
-    def __init__(self, model, backend: Callable, device, label: str):
+    def __init__(self, chain: SegmentChain, key: Optional[Tensor]):
+        self.chain = chain
+        self.key = key
+
+    def __call__(self, step: Callable, x: Tensor):
+        self.start = self.chain.mark()
+        with recycle_round(self.key):
+            out = step(x)
+        self.stop = self.chain.mark()
+        self.x_in, self.x_out = x, out[1]
+        return out
+
+
+class _Bucket:
+    """One bucket's docking stage, for deterministic forwards or, with
+    `stochastic`, for a thread's stochastic one (the dock half of a
+    best-of-N pass): captured at its first batch and replayed for it and
+    every later one, at any recycle count."""
+
+    def __init__(self, model, backend: Callable, device, label: str,
+                 stochastic: bool = False):
         self.model = model
         self.backend = backend
         self.device = torch.device(device)
         self.label = label
+        self.stochastic = stochastic
+        self.n_iter = model.complex_model.n_iter
         self.lock = threading.Lock()
         self.chain: Optional[SegmentChain] = None
+        self.rounds: Optional[_Rounds] = None
         self.consts: Optional[tuple] = None
         self.failed = False
         self.fields: Dict[str, Tensor] = {}
         self.inputs: Tuple[Tensor, ...] = ()
+        # stochastic: the pass's seed and the dropout's round outside the
+        # loop (0) and in it, int64 on the device
+        self.seed = self.zero = self.round = None
         self._done = None         # on the card: the last replay's copies out
+
+    def _fits(self, count) -> bool:
+        """Whether this thread's forward can replay the bucket: deterministic
+        or stochastic as the bucket, on the whole batch (no row map), at a
+        recycle count the host knows."""
+        state = active_stochastic()
+        return ((state is not None) == self.stochastic
+                and not isinstance(count, Tensor)
+                and (state is None or state.rows == RowMap()))
 
     def __call__(self, batch, compound_out: Tensor, protein_out: Tensor,
                  pkt_idx: Tensor, pkt_mask: Tensor, use_stage2: bool,
@@ -513,14 +599,16 @@ class _Bucket:
         reads (READ) are copies, the caller's to keep; on a replay the
         others are None."""
         tensors = (compound_out, protein_out, pkt_idx, pkt_mask)
-        consts = (use_stage2, ctx_k, count)
+        consts = (use_stage2, ctx_k)
+        fits = self._fits(count)
         with self.lock:
-            if self.chain is None and not self.failed and not any(
-                    isinstance(c, Tensor) for c in consts):
+            if fits and self.chain is None and not self.failed:
                 self._capture(batch, tensors, consts)
-            if self.chain is None or consts != self.consts:
+            if not fits or self.chain is None or consts != self.consts:
                 tracing.count("serve.graph_eager", key=self.label)
-                return self.model._dock(batch, *tensors, *consts)
+                return self.model._dock(batch, *tensors, *consts, count)
+            if count is None:
+                count = self.model.complex_model.draw_count()
             tracing.count("serve.graph_replays", key=self.label)
             with tracing.span("model.dock", graph="replay"):
                 if self._done is not None:
@@ -530,7 +618,11 @@ class _Bucket:
                     _copy_in(dst, getattr(batch, name), name)
                 for i, (dst, src) in enumerate(zip(self.inputs, tensors)):
                     _copy_in(dst, src, f"argument {i}")
-                self.chain.replay()
+                if self.stochastic:
+                    # uploaded outside any capture, as the eager pass does
+                    self.seed.copy_(active_stochastic().seed_tensor(
+                        self.device))
+                self._replay(count)
                 out = tuple(t.clone() if i in READ else None
                             for i, t in enumerate(self.chain.outputs))
                 if self.device.type == "cuda":
@@ -538,18 +630,42 @@ class _Bucket:
                     self._done.record(torch.cuda.current_stream(self.device))
                 return out
 
+    def _replay(self, count: int) -> None:
+        """The chain at recycle count `count`: the steps before the round,
+        the round once per round of the Python loop (keyed 0..count - 2,
+        then n_iter - 1, its coordinates carried), the steps after it."""
+        chain, r = self.chain, self.rounds
+        chain.replay(0, r.start)
+        for i, key in enumerate([*range(count - 1), self.n_iter - 1]):
+            if i:
+                r.x_in.copy_(r.x_out)
+            if self.stochastic:
+                self.round.fill_(key)
+            chain.replay(r.start, r.stop)
+        chain.replay(r.stop)
+
     def _capture(self, batch, tensors, consts) -> None:
         static = _ReadFields(batch)
         inputs = tuple(_static(t) for t in tensors)
+        keys = None
+        if self.stochastic:
+            # on the device before the capture: a capture uploads nothing
+            self.seed, self.zero, self.round = (
+                torch.zeros((), dtype=torch.int64, device=self.device)
+                for _ in range(3))
+            keys = StochasticKeys(seed_tensor=self.seed, rnd=self.zero)
+        chain = SegmentChain(self.backend(self.device))
+        rounds = _Rounds(chain, self.round)
         try:
-            chain = SegmentChain(self.backend(self.device), self.model._dock,
-                                 static, *inputs, *consts)
+            with enter_stochastic(keys):
+                chain.capture(self.model._dock, static, *inputs, *consts,
+                              None, rounds)
         except Exception as e:
             self.failed = True
             warnings.warn(f"docking graphs of bucket {self.label} not "
                           f"captured, it docks eagerly: {e!r}")
             return
-        self.chain, self.consts = chain, consts
+        self.chain, self.rounds, self.consts = chain, rounds, consts
         self.fields = {f: static.copies[f] for f in static.read}
         self.inputs = inputs
         tracing.count("serve.graph_captures", key=self.label)
@@ -557,7 +673,8 @@ class _Bucket:
 
 class DockGraphs:
     """One module's docking stage as graphs, a chain per bucket (its
-    shapes and batch size); `docking(...)` stands in for FABind._dock."""
+    shapes and batch size) and kind of forward (deterministic or
+    stochastic); `docking(...)` stands in for FABind._dock."""
 
     def __init__(self, model, backend: Callable, device):
         self.model = model
@@ -566,18 +683,21 @@ class DockGraphs:
         self._lock = threading.Lock()
         self._buckets: Dict[tuple, _Bucket] = {}
 
-    def docking(self, shapes, batch_size: int, label: str) -> _Bucket:
-        """The bucket's docking stage: a callable with FABind._dock's
+    def docking(self, shapes, batch_size: int, label: str,
+                stochastic: bool = False) -> _Bucket:
+        """The bucket's docking stage for deterministic forwards, or with
+        `stochastic` for stochastic ones: a callable with FABind._dock's
         arguments and outputs."""
-        key = (shapes, batch_size)
+        key = (shapes, batch_size, stochastic)
         with self._lock:
             b = self._buckets.get(key)
             if b is None:
                 b = self._buckets[key] = _Bucket(self.model, self.backend,
-                                                 self.device, label)
+                                                 self.device, label,
+                                                 stochastic)
             return b
 
     @property
     def captured(self) -> int:
-        """Buckets captured so far."""
+        """Chains captured so far."""
         return sum(b.chain is not None for b in self._buckets.values())

@@ -29,10 +29,15 @@ throughput there (PERF.md §6).
 Round i's dropout draws are keyed by i, the round with gradient by
 n_iter - 1, so the loop draws the masks of the Python loop and gives its
 result bit for bit.
+
+A forward given `rounds` hands the loop to it: `rounds(step, x)` runs
+`step` (one round from the carried coordinates) as it sees fit and returns
+the last round's outputs. The serving engine's graph capture (graphs.py)
+runs one round there, so that a replay repeats it for any count.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -170,14 +175,14 @@ class EfficientMCAttModel(nn.Module):
 
     def forward(self, x: Tensor, h: Tensor, gi: GraphInputs,
                 ctx_k: Optional[int] = None,
-                count: Union[int, Tensor, None] = None):
+                count: Union[int, Tensor, None] = None,
+                rounds: Optional[Callable] = None):
         """x: [B, N, 3] normalized complex coords; h: [B, N, embed_size].
         ctx_k overrides the ctx graph's K (a shape bucket's). `count` is the
         recycle count (an int, or an int64 0-d tensor on the device in a
-        traced program; default `draw_count()`). Returns (x_out, h_out,
-        pair_embed_out)."""
-        if count is None:
-            count = self.draw_count()
+        traced program; default `draw_count()`). `rounds(step, x)`, when
+        given, runs the rounds instead of the loop (module docstring) and
+        `count` is not read. Returns (x_out, h_out, pair_embed_out)."""
         ctx_k = self.ctx_k if ctx_k is None else ctx_k
         layout = gi.layout
         pair_embed = pair_mask = pp = cc = None
@@ -194,6 +199,12 @@ class EfficientMCAttModel(nn.Module):
         pair = (pair_embed, pair_mask, pp, cc)
 
         x = x.detach()
+        if rounds is not None:
+            h_out, x, pair_out = rounds(
+                lambda x: self._step(h, x, gi, pair, ctx_k), x)
+            return x, h_out, pair_out
+        if count is None:
+            count = self.draw_count()
         host_count = not isinstance(count, Tensor)
         with torch.no_grad():
             if host_count:

@@ -301,9 +301,10 @@ class FABind(nn.Module):
     @tracing.spanned("model.dock")
     def _dock(self, batch: FABindBatch, compound_out: Tensor,
               protein_out: Tensor, pkt_idx: Tensor, pkt_mask: Tensor,
-              use_stage2: bool, ctx_k: int, count=None):
+              use_stage2: bool, ctx_k: int, count=None, rounds=None):
         """Build the docking complex from a pocket selection and run the
-        complex model (with recycle count `count`) and the heads: (coords,
+        complex model (with recycle count `count`, or its rounds run by
+        `rounds`: EfficientMCAttModel.forward) and the heads: (coords,
         y_pred, y_pred_by_coord, dis_map_target, pair_valid, confidence,
         ctx_overflow, pocket_coords)."""
         cfg = self.cfg
@@ -340,7 +341,7 @@ class FABind(nn.Module):
         ctx_overflow = G.ctx_overflow_count(
             x, gi.layout, pkt_mask, cfg.normalize(cfg.intra_cutoff), ctx_k)
         x_out, h_out, pair_out = self.complex_model(x, h, gi, ctx_k=ctx_k,
-                                                    count=count)
+                                                    count=count, rounds=rounds)
 
         layout = gi.layout
         if cfg.is_plus and cfg.only_last_LAS:

@@ -33,14 +33,18 @@ on CUDA tensors one launch of the hand-written kernel (csrc/dropout.cu,
 counted in KERNEL.launches), on CPU tensors the plain version below, which
 does Philox's 32 x 32 -> 64-bit products in int64 tensor arithmetic. The
 scalar Philox (`philox4x32_10` on Python ints) also derives the host's draws:
-the recycle counts and the training stage coin (`host_u32`).
+the recycle counts and the training stage coin (`host_u32`). Inside
+`writing_into(out)` the kernel writes `out` instead of a new tensor and
+returns it (the docking graphs' eager calls, graphs.py).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
+import threading
 import zlib
-from typing import Sequence, Tuple
+from typing import Iterator, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -66,6 +70,8 @@ KERNEL = CudaKernel("dropout.cu", {
     "fabind_philox4x32": ([ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                            ctypes.c_void_p], ctypes.c_int),
 })
+# per thread: the tensor the next launch writes (writing_into), or None
+_INTO = threading.local()
 
 
 def site_id(name: str) -> int:
@@ -202,7 +208,10 @@ def _launch(x: Tensor, seed: Tensor, rnd: Tensor, site: int, call: int,
     the variant "rows")."""
     check_inputs(x, seed, rnd, rate, row_mul, row_add)
     x = x.contiguous()
-    out = torch.empty_like(x)
+    out = getattr(_INTO, "out", None)
+    if out is None or (out.shape, out.dtype, out.device) != (
+            x.shape, x.dtype, x.device) or not out.is_contiguous():
+        out = torch.empty_like(x)
     if x.numel() == 0:
         return out
     mapped = (row_mul, row_add) != (1, 0)
@@ -220,6 +229,19 @@ def _launch(x: Tensor, seed: Tensor, rnd: Tensor, site: int, call: int,
         raise RuntimeError(f"dropout kernel launch failed: CUDA error {err}")
     KERNEL.count_launch("rows" if mapped else None)
     return out
+
+
+@contextlib.contextmanager
+def writing_into(out: Tensor) -> Iterator[None]:
+    """A launch on the card in this thread's block writes `out` and returns
+    it, where x's shape, dtype and device are out's and out is contiguous
+    (else a new tensor, as outside the block); the plain version always
+    returns a new one."""
+    prev, _INTO.out = getattr(_INTO, "out", None), out
+    try:
+        yield
+    finally:
+        _INTO.out = prev
 
 
 @dropout_op.register_fake

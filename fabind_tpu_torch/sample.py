@@ -27,6 +27,13 @@ threefry/rbg streams. What holds instead: the same seed gives the same
 poses, live or exported, and passes with different indices draw different
 masks and counts.
 
+The serving engine's live halves (`live_halves(dock=)`) dock the
+stochastic mode's dock half by replaying its bucket's CUDA graphs
+(graphs.py: one capture per bucket serves every drawn recycle count, the
+pass's seed copied in before each replay); the pocket half, its default
+center, the crop, the read-back, DBSCAN and the picks stay eager, in the
+order below.
+
 Data-parallel serving (`sample_poses(replicas=)`) runs each half on every
 replica's contiguous block of rows, in the replica's thread, with its row
 map (the masks the whole batch draws at those rows); the host step between
@@ -206,12 +213,15 @@ def stochastic_pocket(model, batch, shapes, seed, count,
 
 
 def stochastic_dock(model, batch, shapes, pocket, center, seed, count,
-                    rows: RowMap = RowMap()):
+                    rows: RowMap = RowMap(), dock=None):
     """The dock half of a stochastic pass: docking from the pass's pocket
-    outputs at `center`. Returns (coords [B,Nc,3], confidence [B])."""
+    outputs at `center`. `dock` stands in for the model's docking stage
+    (the serving engine's graphs, graphs.py); the crop is the model's.
+    Returns (coords [B,Nc,3], confidence [B])."""
     with dropout_seed(seed, rows):
         coords, conf, _ = model.inference_diag(batch, center, shapes,
-                                               pocket=pocket, count=count)
+                                               pocket=pocket, count=count,
+                                               dock=dock)
     return coords, conf
 
 
@@ -225,7 +235,7 @@ def stochastic_inference(model, batch, shapes, center, seed, pocket_count,
     return coords, conf
 
 
-def live_halves(model, cfg, rows: RowMap = RowMap()):
+def live_halves(model, cfg, rows: RowMap = RowMap(), dock=None):
     """(pocket_fn, dock_fn) of the live model in bucket cfg, with the
     per-mode contract of sample_poses' `halves`:
 
@@ -235,7 +245,9 @@ def live_halves(model, cfg, rows: RowMap = RowMap()):
         dock_fn(batch, center, seed) -> (coords, confidence)
 
     seed is the pass's int seed; the recycle counts are drawn from it.
-    `rows` is the batch's row map when it is a replica's block."""
+    `rows` is the batch's row map when it is a replica's block. `dock`
+    stands in for the docking stage of the stochastic mode's dock half
+    (stochastic_dock)."""
     m, shapes = cfg.model, cfg.shapes
     if m.sampling_pocket_mode == "stochastic":
         def pocket_fn(batch, seed):
@@ -244,7 +256,8 @@ def live_halves(model, cfg, rows: RowMap = RowMap()):
 
         def dock_fn(batch, pocket, center, seed):
             return stochastic_dock(model, batch, shapes, pocket, center,
-                                   seed, recycle_counts(m, seed)[1], rows)
+                                   seed, recycle_counts(m, seed)[1], rows,
+                                   dock)
     else:
         def pocket_fn(batch):
             return model._pocket_pred(batch, shapes)

@@ -14,10 +14,14 @@ come back in the world frame of the input structure.
 - A live engine with one replica on a CUDA device replays each bucket's
   docking stage as CUDA graphs (graphs.py): the pocket stage, its center
   and the crop run eagerly, then the bucket's graphs, split at each matrix
-  product and edge-gate launch, which stay eager calls of their operators.
-  A bucket's first batch captures its graphs and replays them, so
-  `warmup()` captures every bucket. Best-of-N, exported programs, several
-  replicas and the CPU dock eagerly.
+  product, edge-gate and dropout launch, which stay eager calls of their
+  operators. A bucket's first batch captures its graphs and replays them,
+  so `warmup()` captures every bucket. Best-of-N's dock halves replay a
+  stochastic chain of their bucket, captured at its first pass for every
+  drawn recycle count (so its first `dock_best_of` captures it); its
+  pocket halves and the host step between the halves stay eager. Exported
+  programs, several replicas, the fixed pocket mode's passes and the CPU
+  dock eagerly.
 - Protein rows seen before stay on the device (an LRU keyed by content), so
   a repeated protein skips its upload; `dock_screen` uploads its one protein
   once per bucket.
@@ -43,8 +47,8 @@ come back in the world frame of the input structure.
   graph replay a model.dock span with id graph="replay"; always, it counts
   requests, failures, batches and padding rows by bucket, real and padded
   cells, protein-row cache hits and misses, and by bucket the graph
-  captures, the replays and the batches docked eagerly (GET /health
-  reports them).
+  captures, the replays and the batches (best-of-N: the dock halves)
+  docked eagerly (GET /health reports them).
 - `dock_sdf` docks (ligand SDF, protein PDB) pairs: the files are parsed
   and featurized on the host without RDKit (data/featurize.py), each
   protein is embedded once by the engine's ESM2 encoder (`esm`) and kept
@@ -105,7 +109,7 @@ from fabind_tpu_torch.models.fabind import init_params, make_model
 from fabind_tpu_torch.models.layers import active_stochastic
 from fabind_tpu_torch.parallel.dp import ReplicaSet, dp_devices
 from fabind_tpu_torch.postopt import post_optimize_batch
-from fabind_tpu_torch.sample import sample_poses
+from fabind_tpu_torch.sample import live_halves, sample_poses
 from fabind_tpu_torch.train.convert import drop_dead_keys
 from fabind_tpu_torch.utils import tracing
 from fabind_tpu_torch.utils.precision import (cast_batch_bf16,
@@ -486,6 +490,20 @@ class DockingEngine:
             return None
         return self._graphs.docking(cfg_b.shapes, batch.batch_size, label)
 
+    def _graph_dock_half(self, batch, cfg_b: FABindConfig, sample_size: int):
+        """The stochastic docking stage of cfg_b's bucket as graphs, for
+        the dock halves of best-of-N's passes, where they can serve them: a
+        live engine with one replica on the card, in the stochastic pocket
+        mode. None docks eagerly, and counts the batch's `sample_size`
+        dock halves under serve.graph_eager."""
+        label = _bucket_label(cfg_b.shapes)
+        if (self._graphs is None
+                or cfg_b.model.sampling_pocket_mode != "stochastic"):
+            tracing.count("serve.graph_eager", sample_size, key=label)
+            return None
+        return self._graphs.docking(cfg_b.shapes, batch.batch_size, label,
+                                    stochastic=True)
+
     def _run_block(self, r: int, batch: FABindBatch, cfg_b: FABindConfig,
                    dock=None):
         """run_batch of replica r's block; `dock` stands in for the
@@ -513,10 +531,12 @@ class DockingEngine:
         post_optim_steps > 0, in float32 as the JAX package does: in bf16 a
         coordinate near 32 A moves in steps of 0.25 A, and most lr-0.1 Adam
         updates round away. With several replicas the passes run per
-        replica (sample.sample_poses). Docking runs eagerly (counted under
-        serve.graph_eager): the host picks pocket centers between the
-        halves."""
-        tracing.count("serve.graph_eager", key=_bucket_label(cfg_b.shapes))
+        replica (sample.sample_poses). Each pass's dock half replays the
+        bucket's stochastic docking graphs where the engine can
+        (`_graph_dock_half`; one capture serves every drawn recycle count),
+        each counted under serve.graph_replays; the pocket half, its center
+        and crop and the host's picks between the halves stay eager."""
+        dock = self._graph_dock_half(batch, cfg_b, sample_size)
         blocks = self._blocks(batch)
         if self._exported is not None:
             coords, scores = sample_poses(
@@ -524,9 +544,10 @@ class DockingEngine:
                 batch_idx=batch_idx,
                 halves=self._exported.sampling_halves(cfg_b))
         elif len(blocks) == 1:
-            coords, scores = sample_poses(self.model, blocks[0], cfg_b,
-                                          sample_size, seed=seed,
-                                          batch_idx=batch_idx)
+            coords, scores = sample_poses(
+                self.model, blocks[0], cfg_b, sample_size, seed=seed,
+                batch_idx=batch_idx,
+                halves=live_halves(self.model, cfg_b, dock=dock))
         else:
             coords, scores = sample_poses(None, blocks, cfg_b, sample_size,
                                           seed=seed, batch_idx=batch_idx,

@@ -27,9 +27,10 @@ Endpoints:
                      residues of the requests against rows x the bucket's
                      atoms x residues, so 1 - real/padded is the share of
                      the model's pair work spent on padding; graph
-                     captures, replays and eager batches: how often the
-                     docking stage replayed its bucket's CUDA graphs,
-                     graphs.py; sample passes: best-of-N passes run;
+                     captures, replays and eager batches (best-of-N:
+                     dock halves): how often the docking stage replayed
+                     its bucket's CUDA graphs, graphs.py; sample passes:
+                     best-of-N passes run;
                      sample centers: the rows of those passes docked at a
                      DBSCAN cluster's center or at the default one,
                      sample.py)

@@ -3,7 +3,8 @@ its launch over both attention directions (phi_rank1_pair); and the
 serving engine on the card (bf16 against fp32, bucket routing, the
 protein-row cache, the launch count under threads, the docking stage's
 CUDA graphs against eager docking; FABind+ against the CPU, seeded
-best-of-N sampling); and a training step on the card against
+best-of-N sampling, its dock halves' graphs against eager ones); and a
+training step on the card against
 the same step on the CPU, with the gate's gradients at a docking training
 shape; and the evaluation and confidence paths on the card against the
 CPU; and the structure-file path on the card (the ESM2 encoder against
@@ -377,6 +378,68 @@ def test_dock_best_of_seeded_on_card(cuda):
             assert x.confidence == y.confidence
             diff.append(np.abs(x.coords - z.coords).max())
     assert max(diff) > 0
+
+
+DROPOUT_OP = "fabind_tpu_torch::dropout"
+
+
+def _best_of_records(eng, raws):
+    """Under the profiler, a bf16 dock_best_of's (name, operand shapes) of
+    every product and dropout call, in order; its dropout calls; the
+    dropout kernels the card ran; its product calls with device time under
+    them."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as p:
+        eng.dock_best_of(raws, sample_size=4, seed=1)
+        torch.cuda.synchronize()
+    ops = [e for e in p.events() if e.name in RECORDED + (DROPOUT_OP,)]
+    kernels = [e for e in p.events()
+               if str(e.device_type).endswith("CUDA")
+               and "dropout_kernel<" in e.name]
+    n = {"aten::mm": 2, "aten::bmm": 2}     # an out= call records out too
+    return ([(e.name, [list(s) for s in e.input_shapes[:n.get(e.name, 3)]])
+             for e in ops],
+            sum(e.name == DROPOUT_OP for e in ops), len(kernels),
+            sum(getattr(e, "self_device_time_total", 0) > 0 for e in ops
+                if e.name in RECORDED))
+
+
+def test_graphed_best_of_equals_eager_on_card(cuda):
+    """bf16 best-of-N whose dock halves replay each bucket's stochastic
+    docking graphs (graphs.py) gives the poses and confidences of the same
+    engine with its graphs set aside, bit for bit, on the call that
+    captures and on a call that only replays (every dock half a replay);
+    under the profiler the replayed passes keep one dropout operator
+    record per dropout kernel the card runs and the eager path's product
+    calls, in the same order, at the same shapes and with device time
+    (all but a few: the profiler's correlation drops one now and then)."""
+    raws = _requests() + [_raw(7, 20, 6), _raw(8, 30, 8)]
+    eng = _plus_engine("fabind_plus_sampling")
+    assert eng._graphs is not None
+    n_batches = len(list(eng.batches(raws, [None] * len(raws))))
+    first = eng.dock_best_of(raws, sample_size=4, seed=1)
+    before = _graph_counts()
+    second = eng.dock_best_of(raws, sample_size=4, seed=1)
+    after = _graph_counts()
+    assert (sum(after["serve.graph_replays"].values())
+            - sum(before["serve.graph_replays"].values())) == 4 * n_batches
+    assert after["serve.graph_captures"] == before["serve.graph_captures"]
+    assert after["serve.graph_eager"] == before["serve.graph_eager"]
+    got = _best_of_records(eng, raws)
+    held, eng._graphs = eng._graphs, None
+    want_poses = eng.dock_best_of(raws, sample_size=4, seed=1)
+    want = _best_of_records(eng, raws)
+    eng._graphs = held
+    for poses in (first, second):
+        for g, w in zip(poses, want_poses):
+            assert g.error == w.error
+            if w.error is None:
+                np.testing.assert_array_equal(g.coords, w.coords)
+                assert g.confidence == w.confidence
+    assert got[0] == want[0]
+    assert got[1] == got[2] == want[1] == want[2] > 0
+    assert got[3] >= 0.99 * want[3] > 0
 
 
 # --------------------------------------------------------------- training

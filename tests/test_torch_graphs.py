@@ -12,9 +12,14 @@ captured inputs, as a CUDA graph does.
   and bf16, FABind+, fabflex's docked pocket, the triangle-attention
   stack); batches of one bucket launched before any is read back keep
   their own outputs; threads on one bucket give the poses of serial calls.
+- Best-of-N: a pass's dock half replays its bucket's stochastic chain,
+  captured once for every drawn recycle count, bit for bit the eager dock
+  half at every count and seed (the pass's seed is an input, not part of
+  the capture); eight passes in flight keep their own outputs.
 - Eager fallback, counted under serve.graph_eager: the CPU, two replicas,
-  best-of-N, a thread in a stochastic forward, a bucket whose capture
-  failed (tried once) and a batch with another recycle count.
+  best-of-N there and in the fixed pocket mode, a thread in a stochastic
+  forward, a bucket whose capture failed (tried once) and a recycle count
+  given as a tensor.
 - A segment refuses what a graph cannot hold (a read-back to the host).
 """
 from __future__ import annotations
@@ -31,8 +36,11 @@ from test_torch_cuda import _raw
 
 from fabind_tpu_torch import graphs
 from fabind_tpu_torch.config import preset
-from fabind_tpu_torch.models.layers import dropout_seed
+from fabind_tpu_torch.models.layers import RowMap, dropout_seed
 from fabind_tpu_torch.ops import edge_gate
+from fabind_tpu_torch.sample import (live_halves, recycle_counts,
+                                     sample_poses, stochastic_dock,
+                                     stochastic_pocket)
 from fabind_tpu_torch.serve import DockingEngine, _bucket_label
 from fabind_tpu_torch.utils import tracing
 
@@ -60,7 +68,7 @@ def rerun(monkeypatch):
 
 
 def _engine(name="fabind", eager=False, flags=None, **kw):
-    cfg = preset(name, **KW, **(flags or {}))
+    cfg = preset(name, **dict(KW, **(flags or {})))
     small = dataclasses.replace(cfg.shapes, max_ligand=8, max_pocket=16,
                                 max_protein=32)
     kw.setdefault("device", "cpu")
@@ -179,8 +187,9 @@ def test_graphed_dock_raw_equals_eager(rerun, name, bf16, flags):
     """Graphed poses equal the eager engine's bit for bit in every bucket,
     the first call (captured, then replayed) and the second (replays);
     each bucket is captured once, at its first batch, and every batch is a
-    replay; the chain splits at every matrix product and, in the
-    base model, at its 4 docking gates (FABind+ has none)."""
+    replay; the chain holds one recycle round, which a replay runs twice,
+    and splits at every matrix product and, in the base model, at the 2
+    docking gates of its round (FABind+ has none)."""
     want = _engine(name, True, flags, bf16=bf16).dock_raw(_requests())
     eng = _engine(name, False, flags, bf16=bf16)
     n = _batches(eng, _requests())
@@ -194,7 +203,7 @@ def test_graphed_dock_raw_equals_eager(rerun, name, bf16, flags):
         "serve.graph_captures": {SMALL: 1, LARGE: 1},
         "serve.graph_replays": {k: 2 * v for k, v in n.items()},
         "serve.graph_eager": {}}
-    n_gates = 0 if name == "fabind_plus" else 4
+    n_gates = 0 if name == "fabind_plus" else 2
     between = set(graphs._PRODUCTS) | {graphs._gate_op()}
     for b in eng._graphs._buckets.values():
         assert len(b.chain.gates) == n_gates
@@ -298,8 +307,9 @@ def test_replay_span(rerun):
 def test_a_failed_capture_serves_eager_once(rerun, monkeypatch):
     """A bucket whose capture raises still serves its first batch's eager
     result, warns once and docks eagerly from then on without capturing
-    again; a batch with another recycle count than the captured one docks
-    eagerly too."""
+    again. A captured bucket replays another recycle count than its
+    first batch's (the count is an input of the replay) and docks a count
+    given as a tensor eagerly."""
     raws = [_raw(5, 12, 1), _raw(6, 14, 2)]
     want = _engine(eager=True).dock_raw(raws)
     tries = []
@@ -328,22 +338,86 @@ def test_a_failed_capture_serves_eager_once(rerun, monkeypatch):
     (_, cfg_b, batch, _), = list(eng.batches(raws, [None] * len(raws)))
     bucket = eng._graph_dock(batch, cfg_b)
     model = eng.model
-    assert bucket.consts == (True, cfg_b.shapes.ctx_k, None)
+    assert bucket.consts == (True, cfg_b.shapes.ctx_k)
+    for count, moved in ((1, "serve.graph_replays"),
+                         (torch.tensor(1), "serve.graph_eager")):
+        before = _counts()
+        with torch.inference_mode():
+            a = model.inference_diag(batch, shapes=cfg_b.shapes, count=count,
+                                     dock=bucket)
+            b = model.inference_diag(batch, shapes=cfg_b.shapes, count=1)
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert _moved(before, _counts()) == dict(
+            {k: {} for k in COUNTERS}, **{moved: {SMALL: 1}})
+
+
+# ---------------------------------------------------------------- best-of-N
+def _sampler_batch():
+    """A best-of-N stand-in engine at 1 layer x 3 recycles, one
+    small-bucket batch of it and the bucket's stochastic docking chain."""
+    eng = _engine("fabind_plus_sampling", flags={"n_iter": 3,
+                                                 "mean_layers": 1})
+    raws = [_raw(5, 12, 1), _raw(6, 14, 2)]
+    (_, cfg_b, batch, _), = list(eng.batches(raws, [None] * len(raws)))
+    return eng, cfg_b, batch, eng._graph_dock_half(batch, cfg_b, 1)
+
+
+def test_graphed_dock_half_equals_eager_at_every_count(rerun):
+    """A pass's dock half replayed from its bucket's stochastic chain
+    equals the eager dock half bit for bit at every recycle count and
+    under two seeds, from the same pocket half: the chain is captured once
+    for all of them, and a second seed through it gives other outputs, its
+    own eager ones (a seed kept from the capture would repeat the
+    first's)."""
+    eng, cfg_b, batch, bucket = _sampler_batch()
+    model, m, shapes = eng.model, cfg_b.model, cfg_b.shapes
     before = _counts()
+    got = {}
     with torch.inference_mode():
-        a = model.inference_diag(batch, shapes=cfg_b.shapes, count=1,
-                                 dock=bucket)
-        b = model.inference_diag(batch, shapes=cfg_b.shapes, count=1)
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
-    assert _moved(before, _counts())["serve.graph_eager"] == {SMALL: 1}
+        pocket, center = stochastic_pocket(model, batch, shapes, 11,
+                                           recycle_counts(m, 11)[0])
+        for seed in (11, 12):
+            for count in range(1, m.n_iter + 1):
+                want = stochastic_dock(model, batch, shapes, pocket, center,
+                                       seed, count)
+                got[seed, count] = stochastic_dock(
+                    model, batch, shapes, pocket, center, seed, count,
+                    RowMap(), bucket)
+                torch.testing.assert_close(got[seed, count], want, rtol=0,
+                                           atol=0)
+    n = 2 * m.n_iter
+    assert _moved(before, _counts()) == {
+        "serve.graph_captures": {SMALL: 1}, "serve.graph_replays": {SMALL: n},
+        "serve.graph_eager": {}}
+    for count in range(1, m.n_iter + 1):
+        assert not all(torch.equal(a, b) for a, b in zip(got[11, count],
+                                                         got[12, count]))
+
+
+def test_inflight_best_of_passes_keep_their_outputs(rerun):
+    """Eight passes of a batch, every dock half launched before any output
+    is read, each replaying the bucket's chain, keep their own outputs:
+    each pass equals the eager pass bit for bit, and the passes differ."""
+    eng, cfg_b, batch, bucket = _sampler_batch()
+    got = sample_poses(eng.model, batch, cfg_b, 8, seed=5,
+                       halves=live_halves(eng.model, cfg_b, dock=bucket))
+    want = sample_poses(eng.model, batch, cfg_b, 8, seed=5)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    assert len({got[1][s].float().numpy().tobytes() for s in range(8)}) == 8
 
 
 # ---------------------------------------------------------- eager fallback
 def test_eager_on_cpu_with_two_replicas_and_best_of(rerun, monkeypatch):
     """No graph, every batch counted under serve.graph_eager: an engine on
-    the CPU (without the stand-in), two replicas, best-of-N sampling, and
-    a dock_raw inside a stochastic forward of its thread."""
+    the CPU (without the stand-in), two replicas, and a dock_raw inside a
+    stochastic forward of its thread; best-of-N's dock halves, each counted
+    once, dock eagerly there and in the fixed pocket mode, and replay on
+    the one-replica engine with the stand-in."""
     raws = _requests()[:2]
+    halves = {SMALL: 2, LARGE: 2}           # 2 passes in each bucket
+    one = {"mean_layers": 1}
+    eager = {"serve.graph_captures": {}, "serve.graph_replays": {},
+             "serve.graph_eager": halves}
     monkeypatch.undo()
     plain = _engine()
     assert plain._graphs is None
@@ -352,6 +426,10 @@ def test_eager_on_cpu_with_two_replicas_and_best_of(rerun, monkeypatch):
     assert _moved(before, _counts()) == {
         "serve.graph_captures": {}, "serve.graph_replays": {},
         "serve.graph_eager": {SMALL: 1, LARGE: 1}}
+    before = _counts()
+    _engine("fabind_plus_sampling", flags=one).dock_best_of(
+        raws, sample_size=2, seed=3)
+    assert _moved(before, _counts()) == eager
 
     monkeypatch.setattr(graphs, "backend_for", lambda device: graphs.Rerun)
     two = _engine(device=["cpu", "cpu"])
@@ -360,14 +438,21 @@ def test_eager_on_cpu_with_two_replicas_and_best_of(rerun, monkeypatch):
     two.dock_raw(raws)
     assert _moved(before, _counts())["serve.graph_eager"] == {SMALL: 1,
                                                               LARGE: 1}
+    for kw in (dict(device=["cpu", "cpu"], flags=one),
+               dict(flags=dict(one, sampling_pocket_mode="fixed"))):
+        before = _counts()
+        _engine("fabind_plus_sampling", **kw).dock_best_of(raws,
+                                                           sample_size=2,
+                                                           seed=3)
+        assert _moved(before, _counts()) == eager, kw
 
-    sampler = _engine("fabind_plus_sampling")
+    sampler = _engine("fabind_plus_sampling", flags=one)
     assert sampler._graphs is not None
     before = _counts()
     sampler.dock_best_of(raws, sample_size=2, seed=3)
     assert _moved(before, _counts()) == {
-        "serve.graph_captures": {}, "serve.graph_replays": {},
-        "serve.graph_eager": {SMALL: 1, LARGE: 1}}
+        "serve.graph_captures": {SMALL: 1, LARGE: 1},
+        "serve.graph_replays": halves, "serve.graph_eager": {}}
 
     eng = _engine()
     before = _counts()

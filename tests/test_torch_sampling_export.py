@@ -127,10 +127,19 @@ def test_manifest_records_the_halves(artifact):
 
 def test_dock_best_of_artifact_equals_live(artifact):
     """Same seed, same poses and confidences bit for bit; another seed,
-    other poses."""
+    other poses; the artifact's dock halves run without docking graphs,
+    each counted under serve.graph_eager."""
+    from fabind_tpu_torch.utils import tracing
+
+    def eager():
+        return sum(tracing.snapshot()["counters"].get(
+            "serve.graph_eager", {}).values())
+
     raws = _requests()
     want = artifact["live"].dock_best_of(raws, sample_size=3, seed=5)
+    before = eager()
     got = artifact["exported"].dock_best_of(raws, sample_size=3, seed=5)
+    assert eager() - before == 3 * 2            # 3 passes x 2 batches
     other = artifact["exported"].dock_best_of(raws, sample_size=3, seed=6)
     for g, w in zip(got, want):
         assert g.error is None
